@@ -1,0 +1,21 @@
+"""auncel_tpu_torch — error-bounded IVF vector search in PyTorch and CUDA.
+
+The port of ``auncel_tpu`` (JAX/XLA/Pallas on a TPU) to one NVIDIA Hopper
+GPU. ``auncel_tpu`` stays the reference: the same index state, profile and
+queries give the same ids and decisions in both packages. This package
+imports torch and never jax.
+
+Main path: ``IVFFlatIndex.train``/``add``/``enable_multirow``, ground truth
+from ``exact_search``, ``ErrorSys.sys_train``/``set_topk``/``set_queries``/
+``calibrate``, then ``ErrorSys.search`` with a recall bound per query. The
+scan's dot runs in the hand-written CUDA kernel ``kernels/rowscan.py`` on a
+CUDA device and in its plain PyTorch version on the CPU.
+"""
+
+from auncel_tpu_torch.types import Metric
+from auncel_tpu_torch.index.ivf import IVFFlatIndex
+from auncel_tpu_torch.profile.error_sys import ErrorSys
+
+__version__ = "0.1.0"
+
+__all__ = ["Metric", "IVFFlatIndex", "ErrorSys", "__version__"]
