@@ -3,13 +3,14 @@
 Each function takes the JAX package's state as a dict of numpy arrays
 (``{name: np.asarray(value)}`` of an ``IVFArrays``, ``MultiRowArrays`` or
 ``TraceSet``; a nested ``rows`` dict for ``MultiRowArrays``), so this module
-imports no jax. With them both packages compute on identical state.
+imports no jax. With them both packages compute on identical state. The
+tensors go to the card unless ``device`` says otherwise.
 """
 
 import numpy as np
 import torch
 
-from auncel_tpu_torch.index.scan import IVFArrays
+from auncel_tpu_torch.index.scan import IVFArrays, RowArrays
 from auncel_tpu_torch.index.multirow import MultiRowArrays
 from auncel_tpu_torch.profile.trace import TraceSet, traces_from_arrays
 
@@ -22,7 +23,7 @@ def _tensor(name: str, a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype, order="C"), device=device)
 
 
-def ivf_arrays_from_numpy(state: dict, device="cpu") -> IVFArrays:
+def ivf_arrays_from_numpy(state: dict, device="cuda") -> IVFArrays:
     """IVFArrays from the JAX package's IVFArrays fields (f32 storage)."""
     for codec in ("sq_scale", "pq_codebooks"):
         if state.get(codec) is not None:
@@ -32,15 +33,15 @@ def ivf_arrays_from_numpy(state: dict, device="cpu") -> IVFArrays:
                         for f in IVFArrays._fields})
 
 
-def multirow_from_numpy(state: dict, device="cpu") -> MultiRowArrays:
+def multirow_from_numpy(state: dict, device="cuda") -> MultiRowArrays:
     """MultiRowArrays from the JAX package's fields; ``state["rows"]`` is
     the IVFArrays dict of the row layout."""
-    rows = ivf_arrays_from_numpy(state["rows"], device)
+    rows = RowArrays(*ivf_arrays_from_numpy(state["rows"], device))
     return MultiRowArrays(rows, *(_tensor(f, state[f], device)
                                   for f in MultiRowArrays._fields[1:]))
 
 
-def traces_from_numpy(state: dict, device="cpu") -> TraceSet:
+def traces_from_numpy(state: dict, device="cuda") -> TraceSet:
     """TraceSet from the JAX package's TraceSet fields."""
     return traces_from_arrays(state["phi"], state["u"], state["std"],
                               state["n_bins"], device)

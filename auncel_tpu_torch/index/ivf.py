@@ -1,8 +1,10 @@
 """IVF-Flat index (port of ``auncel_tpu/index/ivf.py``, float32 storage).
 
 Lists are packed into a padded ``[nlist, cap, d]`` tensor on ``device``
-(cap = the largest list, rounded up to 8; pad slots carry id -1), and
-``enable_multirow`` keeps the tight row layout the bounded engine scans.
+(the card, ``"cuda"``, unless the caller passes another; cap = the largest
+list, rounded up to 8; pad slots carry id -1), which the padded engines
+scan, and ``enable_multirow`` keeps the tight row layout the multi-row
+engine scans.
 Not ported yet: the SQ/PQ/bf16 codecs, the IMI and HNSW coarse
 quantizers, the dense-scan crossover, ``max_codes``, reconstruction and
 updates; each raises ``NotImplementedError``.
@@ -28,7 +30,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 def compute_interdis(centroids: np.ndarray, metric: Metric,
-                     device="cpu") -> np.ndarray:
+                     device="cuda") -> np.ndarray:
     """All-pairs centroid matrix: L2 squared distances, or for IP the
     angles arccos(<ci, cj>) of the normalised centroids; zero diagonal."""
     c = torch.as_tensor(np.asarray(centroids, np.float32),
@@ -61,7 +63,7 @@ class IVFFlatIndex:
     INTERDIS_EAGER_MAX = 4096
 
     def __init__(self, d: int, nlist: int, metric: Metric = Metric.L2,
-                 device="cpu", kmeans_params: KmeansParams | None = None,
+                 device="cuda", kmeans_params: KmeansParams | None = None,
                  cap_quantile: float = 1.0, storage: str = "f32",
                  coarse: str = "kmeans"):
         """``cap_quantile`` < 1 caps list capacity at that quantile of list
@@ -97,8 +99,8 @@ class IVFFlatIndex:
         """An index on given centroids, packed arrays and (optionally)
         multi-row layout, for example the JAX package's state carried over
         by ``convert``, so both packages compute on identical index state.
-        The stored vectors stay queued too, so a later ``add`` repacks
-        all."""
+        It shares the arrays' tensors and lives on their device. The stored
+        vectors stay queued too, so a later ``add`` repacks all."""
         nlist, d = np.asarray(centroids).shape
         idx = cls(d, nlist, metric, device=arrays.db.device)
         idx.centroids = np.asarray(centroids, np.float32)

@@ -2,9 +2,10 @@
 
 Each list is re-packed into ceil(size / row_cap) rows of a
 [n_rows, row_cap, d] tensor, so a probed list is scanned as its tight rows
-instead of one block padded to the largest list. The row tensor is an
-``IVFArrays`` whose "lists" are rows; ``expand_probes`` maps each query's
-ranked list slots to ranked row slots.
+instead of one block padded to the largest list. The row tensor is a
+``RowArrays``, an ``IVFArrays`` whose "lists" are rows and which the scan
+scores with K1; ``expand_probes`` maps each query's ranked list slots to
+ranked row slots.
 """
 
 from typing import NamedTuple
@@ -14,13 +15,13 @@ import torch
 
 from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.index.scan import (
-    IVFArrays, check_f32_storage, coarse_rank, scan_probe_range)
+    IVFArrays, RowArrays, check_f32_storage, coarse_rank, scan_probe_range)
 from auncel_tpu_torch.ops.distance import sqnorms
 from auncel_tpu_torch.ops.topk import init_topk
 
 
 class MultiRowArrays(NamedTuple):
-    rows: IVFArrays              # row-granular index state ("lists" == rows)
+    rows: RowArrays              # row-granular index state ("lists" == rows)
     row_table: torch.Tensor      # [nlist, max_rows] int32 row ids, -1 padded
     rows_per_list: torch.Tensor  # [nlist] int32
     row_base: torch.Tensor       # [nlist] int32 first row of each list
@@ -70,7 +71,7 @@ def build_multirow(arrays: IVFArrays, row_cap: int | None = None
     real = src_list >= 0
     row_sizes[real] = np.minimum(
         np.maximum(sizes[src_list[real]] - src_off[real], 0), row_cap)
-    rows = IVFArrays(
+    rows = RowArrays(
         centroids=arrays.centroids, cent_sq=arrays.cent_sq, db=db,
         db_sq=db_sq, vec_ids=vec_ids,
         list_sizes=torch.as_tensor(row_sizes.astype(np.int32), device=dev),

@@ -1,11 +1,18 @@
 """Core IVF list-scan primitives (port of ``auncel_tpu/index/scan.py``).
 
-One probe step for a whole query batch:
+One probe step for a whole query batch scores every stored slot of the
+probed lists, masks probe slots past each query's limit and dead slots, and
+merges the candidates into the exact running top-k. Two hand-written
+kernels score, chosen by the layout the caller holds:
 
-    worklist of (query, list-or-row) pairs
-    -> K1, the hand-written row-scan kernel: one fp32 dot per stored slot
-    -> score assembly from the STORED norms, probe-limit and id masks
-    -> exact top-k merge into the running result
+    padded lists (IVFArrays)          -> K2, kernels/scan_scores.py: scores
+                                         and ids of the live slots only
+    multi-row rows (RowArrays)        -> K1, kernels/rowscan.py: one fp32
+                                         dot per slot over a flat worklist,
+                                         scores assembled here
+
+Both use the STORED norms ``db_sq``, so every term but the dot is bitwise
+the JAX package's.
 
 ``limit`` carries the per-query probe budget: probe slot ``ik`` contributes
 iff ``ik < limit[b]``, so a batch runs one shape while each query scans
@@ -23,6 +30,7 @@ from auncel_tpu_torch.types import Metric, worst_value
 from auncel_tpu_torch.ops.distance import pairwise_scores, sqnorms
 from auncel_tpu_torch.ops.topk import init_topk, topk_scores
 from auncel_tpu_torch.kernels.rowscan import rowscan_dots
+from auncel_tpu_torch.kernels.scan_scores import scan_scores
 
 
 class IVFArrays(NamedTuple):
@@ -46,6 +54,13 @@ class IVFArrays(NamedTuple):
     @property
     def d(self) -> int:
         return self.centroids.shape[1]
+
+
+class RowArrays(IVFArrays):
+    """The multi-row layout's row tensor (``index/multirow.py``): an
+    IVFArrays whose "lists" are rows. ``scan_probe_range`` scores rows with
+    K1 and padded lists with K2."""
+    __slots__ = ()
 
 
 def check_f32_storage(arrays: IVFArrays) -> None:
@@ -77,6 +92,26 @@ def pick_probe_chunk(batch: int, cap: int, width: int) -> int:
     return max(1, min(width, CHUNK_SLOTS // max(batch * cap, 1)))
 
 
+def _row_scores(rows: RowArrays, q, q_sq, row_ids, in_limit, metric):
+    """K1 route: scores and ids [B, Cc * row_cap] of the probed rows."""
+    B, Cc = row_ids.shape
+    cap = rows.cap
+    row_ids = row_ids.clamp_min(0)
+    dots = rowscan_dots(rows.db, row_ids.reshape(-1).to(torch.int32),
+                        q.repeat_interleave(Cc, dim=0)).reshape(B, Cc, cap)
+    row_ids = row_ids.long()
+    sub_sq = rows.db_sq[row_ids]      # [B, Cc, cap]
+    sub_ids = rows.vec_ids[row_ids]   # [B, Cc, cap]
+    if metric is Metric.L2:
+        scores = (q_sq[:, None, None] + sub_sq - 2.0 * dots).clamp_min(0.0)
+    else:
+        scores = dots
+    active = in_limit[:, :, None] & (sub_ids >= 0)
+    scores = torch.where(active, scores, worst_value(metric))
+    sub_ids = torch.where(active, sub_ids, -1)
+    return scores.reshape(B, Cc * cap), sub_ids.reshape(B, Cc * cap)
+
+
 def scan_probe_range(
     arrays: IVFArrays,
     q: torch.Tensor,            # [B, d]
@@ -91,40 +126,35 @@ def scan_probe_range(
     probe_chunk: int | None = None,
 ):
     """Scan probe slots [start, start + width) for every query; a per-query
-    ``start`` lets each query advance its own frontier. The dot of every
-    (query, stored slot) pair runs in K1 over a flat worklist (one entry per
-    (query, probe slot)); scores use the stored ``db_sq``, so every term but
-    the dot is bitwise the JAX package's."""
+    ``start`` lets each query advance its own frontier. Padded lists are
+    scored by K2, which reads nothing for a probe slot past the query's
+    limit (passed as list id -1); the rows of a ``RowArrays`` by K1."""
     check_f32_storage(arrays)
     k = vals.shape[-1]
-    worst = worst_value(metric)
     B = q.shape[0]
-    cap = arrays.cap
     if width <= 0 or B == 0:
         return vals, ids
-    C = probe_chunk or pick_probe_chunk(B, cap, width)
+    rows = isinstance(arrays, RowArrays)
+    C = probe_chunk or pick_probe_chunk(B, arrays.cap, width)
     n_slots_avail = probe_lists.shape[1]
     dev = q.device
+    q = q.contiguous()
     start = torch.as_tensor(start, dtype=torch.int32, device=dev).expand(B)
     for c0 in range(0, width, C):
         Cc = min(C, width - c0)
         iks = start[:, None] + c0 + torch.arange(Cc, dtype=torch.int32,
                                                  device=dev)[None, :]
         safe_iks = iks.clamp(0, n_slots_avail - 1).long()
-        lists = torch.gather(probe_lists, 1, safe_iks).clamp_min(0)  # [B,Cc]
-        work_rows = lists.reshape(-1).to(torch.int32).contiguous()
-        qs = q.repeat_interleave(Cc, dim=0)
-        dots = rowscan_dots(arrays.db, work_rows, qs).reshape(B, Cc, cap)
-        lists = lists.long()
-        sub_sq = arrays.db_sq[lists]      # [B, Cc, cap]
-        sub_ids = arrays.vec_ids[lists]   # [B, Cc, cap]
-        if metric is Metric.L2:
-            scores = (q_sq[:, None, None] + sub_sq - 2.0 * dots).clamp_min(0.0)
+        lists = torch.gather(probe_lists, 1, safe_iks)   # [B, Cc]
+        in_limit = iks < limit[:, None]
+        if rows:
+            scores, sub_ids = _row_scores(arrays, q, q_sq, lists, in_limit,
+                                          metric)
         else:
-            scores = dots
-        active = (iks[:, :, None] < limit[:, None, None]) & (sub_ids >= 0)
-        scores = torch.where(active, scores, worst).reshape(B, Cc * cap)
-        sub_ids = torch.where(active, sub_ids, -1).reshape(B, Cc * cap)
+            lists = torch.where(in_limit, lists, -1).to(torch.int32)
+            scores, sub_ids = scan_scores(
+                arrays.db, arrays.db_sq, arrays.vec_ids, arrays.list_sizes,
+                q, q_sq, lists, metric)
         vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
                                 torch.cat([ids, sub_ids], dim=-1), k, metric)
     return vals, ids

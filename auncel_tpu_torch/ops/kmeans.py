@@ -107,7 +107,7 @@ def _kmeanspp_init(x: torch.Tensor, k: int, gen: torch.Generator):
 
 
 def kmeans(x, k: int, params: KmeansParams = KmeansParams(),
-           metric: Metric = Metric.L2, device="cpu") -> KmeansResult:
+           metric: Metric = Metric.L2, device="cuda") -> KmeansResult:
     """Train k centroids on x [n, d] (numpy in / numpy out) on ``device``."""
     dev = resolve(device)
     x = np.asarray(x, np.float32)

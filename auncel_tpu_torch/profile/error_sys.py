@@ -7,13 +7,15 @@ queries with per-query required recalls (``set_queries``), auto-tunes
 (multipler, std_m) (``calibrate``) and serves bounded searches
 (``search``), recording each query's ``my_nprobe`` and ``n_scanned``.
 
-``search`` runs the single-phase wave engine over the multi-row layout:
-windows of at most ``lat_bucket_max`` queries under the batch-1-shaped
-``plan_latency``, larger ones under ``plan_mr_waves`` (whose ids, values
-and decisions equal the JAX package's one-shot engine). Not ported yet:
-the one-shot and dense engines, the padded engines (an index without the
-multi-row layout), streaming dispatch, the time-budget mode and profile
-mode (``t_recalls``).
+With the multi-row layout, ``search`` runs the single-phase wave engine
+over the rows: windows of at most ``lat_bucket_max`` queries under the
+batch-1-shaped ``plan_latency``, larger ones under ``plan_mr_waves`` (whose
+ids, values and decisions equal the JAX package's one-shot engine).
+Without it, the padded engines run: single-phase ``bounded_search`` for
+windows of at most 8 queries, else the two-phase path (decision waves,
+then each straggler's remaining budget in probe-width buckets). Not ported
+yet: the one-shot and dense engines, streaming dispatch, the time-budget
+mode and profile mode (``t_recalls``).
 """
 
 import numpy as np
@@ -24,6 +26,8 @@ from auncel_tpu_torch.profile import hyper
 from auncel_tpu_torch.profile.trainer import train_profile
 from auncel_tpu_torch.profile.trace import (
     TraceSet, save_trace_set, load_trace_set)
+from auncel_tpu_torch.profile.bounded import (
+    bounded_search, bounded_search_decide, finish_scan)
 from auncel_tpu_torch.profile.bounded_mr import (
     bounded_search_mr, plan_latency, plan_mr_waves)
 
@@ -129,13 +133,9 @@ class ErrorSys:
             return bool(np.any(self.require_acc * k > k - 1 + 1e-4))
         return bool(self.decide_margin)
 
-    def _plan(self, size: int):
-        mr = self.index.multirow
-        if mr is None:
-            raise NotImplementedError(
-                "bounded search needs the multi-row layout "
-                "(index.enable_multirow()); the padded engines are not "
-                "ported yet")
+    def _plan(self, mr, size: int):
+        """The multi-row wave plan for a window of ``size`` queries, cached
+        per layout instance."""
         if self._plans_for is not mr:
             self._plans_for = mr
             self._rpl = mr.rows_per_list.cpu().numpy()
@@ -151,26 +151,81 @@ class ErrorSys:
                 if latency else
                 plan_mr_waves(self._rpl, self.index.nlist, decide_only=False,
                               min_decide_stage=key[1]))
-        return mr, self._plans[key]
+        return self._plans[key]
+
+    @staticmethod
+    def _width_buckets(need: np.ndarray, target: np.ndarray, base: int,
+                       nlist: int):
+        """Group straggler rows into geometric target-width buckets
+        (4·base, 16·base, ..., nlist]: a straggler scans up to its bucket's
+        width under its own limit, so the buckets change how many scans
+        run, not their results."""
+        widths = []
+        w = max(base, 1) * 4
+        while w < nlist:
+            widths.append(w)
+            w *= 4
+        widths.append(nlist)
+        lo = base
+        for w in widths:
+            rows = need[(target[need] > lo) & (target[need] <= w)]
+            if rows.size:
+                yield w, rows
+            lo = w
+
+    def _two_phase(self, q, acc, multipler, std_m, margin: bool):
+        """Decision waves for the whole window, then ``finish_scan`` for the
+        stragglers whose budget passes nlist/8, one scan per width
+        bucket."""
+        arrays = self.index.arrays
+        metric = self.index.metric
+        nlist = self.index.nlist
+        cap_stage = nlist // 8
+        vals, ids, my_np, decided, _, q_sq = bounded_search_decide(
+            arrays, self.traces, q, acc, multipler, std_m, self.query_topk,
+            self.max_topk, metric, decide_margin=margin)
+        target = torch.maximum(my_np, decided).clamp_max(nlist)
+        target_np = target.cpu().numpy()
+        need = np.where(target_np > cap_stage)[0]
+        for w, rows in self._width_buckets(need, target_np, cap_stage,
+                                           nlist):
+            sel = torch.as_tensor(rows, device=q.device)
+            vals[sel], ids[sel] = finish_scan(
+                arrays, q[sel], q_sq[sel], vals[sel], ids[sel], my_np[sel],
+                cap_stage, w - cap_stage, metric)
+        return vals, ids, my_np, target
 
     def search(self, start: int, search_size: int = -1):
         """Bounded search over queries[start : start + size]. Returns numpy
         (D [size, query_topk], I [size, query_topk]) and records my_nprobe
-        and n_scanned at absolute positions."""
+        and n_scanned at absolute positions. The multi-row layout, when
+        enabled, takes every window; else windows of more than 8 queries
+        run the two-phase path and smaller ones single-phase
+        ``bounded_search`` (the two give equal results)."""
         assert self.is_trained, "sys_train before search"
         size = self.num if search_size == -1 else search_size
-        mr, plan = self._plan(size)
         dev = self.index.device
         q = torch.as_tensor(self.queries[start:start + size], device=dev)
         acc = torch.as_tensor(self.require_acc[start:start + size],
                               device=dev)
         f32 = torch.float32
-        vals, ids, my_np, n_scanned = bounded_search_mr(
-            self.index.arrays, mr, self.traces, q, acc,
-            torch.tensor(self.multipler, dtype=f32, device=dev),
-            torch.tensor(self.std_m, dtype=f32, device=dev), self.query_topk,
-            self.max_topk, self.index.metric, plan,
-            self._decide_margin_flag())
+        multipler = torch.tensor(self.multipler, dtype=f32, device=dev)
+        std_m = torch.tensor(self.std_m, dtype=f32, device=dev)
+        margin = self._decide_margin_flag()
+        mr = self.index.multirow
+        if mr is not None:
+            vals, ids, my_np, n_scanned = bounded_search_mr(
+                self.index.arrays, mr, self.traces, q, acc, multipler, std_m,
+                self.query_topk, self.max_topk, self.index.metric,
+                self._plan(mr, size), margin)
+        elif size > 8:
+            vals, ids, my_np, n_scanned = self._two_phase(
+                q, acc, multipler, std_m, margin)
+        else:
+            vals, ids, my_np, n_scanned = bounded_search(
+                self.index.arrays, self.traces, q, acc, multipler, std_m,
+                self.query_topk, self.max_topk, self.index.metric,
+                decide_margin=margin)
         k = self.query_topk
         vals, ids = vals[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
         self.my_nprobe[start:start + size] = my_np.cpu().numpy()

@@ -2,10 +2,10 @@
 build from the same centroids and vectors, value-consistent ground truth,
 profile training, calibration, a batched window and batch-1 windows. Ids,
 my_nprobe and n_scanned equal; distances and profile bins within the 1e-5
-kscaling band."""
+kscaling band. ErrorSys on an index without the multi-row layout is held
+to the JAX package in tests/test_torch_padded.py."""
 
 import numpy as np
-import pytest
 
 import torch_parity as tp
 from torch_parity import (ACC, K, MAX_TOPK, N_TEST, N_TRAIN, as_numpy,
@@ -52,7 +52,7 @@ def test_errorsys_end_to_end_matches_jax():
     jes.set_gt(f["gt_D"], f["gt_I"])
     want = _flow(jes, xq)
 
-    idx = att.IVFFlatIndex(tp.D, tp.NLIST)
+    idx = att.IVFFlatIndex(tp.D, tp.NLIST, device=tp.DEVICE)
     idx.set_centroids(f["centers"])
     idx.add(f["xb"])
     idx.enable_multirow(row_cap=tp.ROW_CAP)
@@ -102,20 +102,6 @@ def test_errorsys_search_on_carried_state_matches_jax(tmp_path):
         sl = slice(start, start + size)
         np.testing.assert_array_equal(es.my_nprobe[sl], jes.my_nprobe[sl])
         np.testing.assert_array_equal(es.n_scanned[sl], jes.n_scanned[sl])
-
-
-def test_errorsys_without_multirow_is_not_ported():
-    f = jax_fixture()
-    idx = att.IVFFlatIndex(tp.D, tp.NLIST)
-    idx.set_centroids(f["centers"])
-    idx.add(f["xb"][:500])
-    es = att.ErrorSys(idx, train_num=N_TRAIN + N_TEST, max_topk=MAX_TOPK)
-    es.set_gt(*idx.exact_search(f["xq"], MAX_TOPK))
-    es.sys_train(N_TRAIN, f["xq"])
-    es.set_queries(N_TEST, f["xq"], np.full(N_TRAIN + N_TEST, ACC,
-                                            np.float32))
-    with pytest.raises(NotImplementedError):
-        es.search(N_TRAIN, 2)
 
 
 def test_errorsys_helpers_match_jax(tmp_path):

@@ -10,7 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_parity import (D, NLIST, ROW_CAP, as_numpy, jax_fixture,
+from torch_parity import (D, DEVICE, NLIST, ROW_CAP, as_numpy, jax_fixture,
                           port_state, tnp)
 from auncel_tpu.index import scan as jscan
 from auncel_tpu.index import multirow as jmr
@@ -43,7 +43,8 @@ def test_coarse_rank_and_interdis_match():
     _close(tnp(td), np.asarray(jd))
     for m, jm in ((L2, JMetric.L2), (Metric.IP, JMetric.IP)):
         np.testing.assert_allclose(
-            compute_interdis(f["centers"], m), j_interdis(f["centers"], jm),
+            compute_interdis(f["centers"], m, DEVICE),
+            j_interdis(f["centers"], jm),
             rtol=1e-5, atol=1e-5)
 
 
@@ -128,7 +129,7 @@ def test_pack_matches_jax_layout(cap_quantile):
     from auncel_tpu.index.ivf import IVFFlatIndex as JIVF
     f = jax_fixture()
     xb = f["xb"][:1500]
-    ours = IVFFlatIndex(D, NLIST, cap_quantile=cap_quantile)
+    ours = IVFFlatIndex(D, NLIST, cap_quantile=cap_quantile, device=DEVICE)
     ours.set_centroids(f["centers"])
     ours.add(xb)
     ref = JIVF(D, NLIST, cap_quantile=cap_quantile)
@@ -144,9 +145,9 @@ def test_pack_matches_jax_layout(cap_quantile):
 
 def test_storage_codecs_not_ported_raise():
     with pytest.raises(NotImplementedError):
-        IVFFlatIndex(D, NLIST, storage="sq8")
+        IVFFlatIndex(D, NLIST, storage="sq8", device=DEVICE)
     with pytest.raises(NotImplementedError):
-        IVFFlatIndex(D, NLIST, coarse="imi")
+        IVFFlatIndex(D, NLIST, coarse="imi", device=DEVICE)
 
 
 def test_kmeans_steps_match_jax():
@@ -175,7 +176,8 @@ def test_kmeans_random_init_matches_jax():
     run (with balancing) lands on the same centroids."""
     f = jax_fixture()
     params = dict(niter=6, init="random", balance_iters=2, seed=5)
-    t = tkm.kmeans(f["xb"][:2048], 16, tkm.KmeansParams(**params))
+    t = tkm.kmeans(f["xb"][:2048], 16, tkm.KmeansParams(**params),
+                   device=DEVICE)
     j = jkm.kmeans(f["xb"][:2048], 16, jkm.KmeansParams(**params))
     np.testing.assert_allclose(t.centroids, j.centroids, rtol=1e-4,
                                atol=1e-4)
@@ -192,7 +194,8 @@ def test_kmeanspp_trains_an_index():
     rows = {tuple(r) for r in xb.tolist()}
     assert all(tuple(s) in rows for s in tnp(seeds).tolist())
     assert len({tuple(s) for s in tnp(seeds).tolist()}) == 16
-    idx = IVFFlatIndex(D, 16, kmeans_params=tkm.KmeansParams(niter=5))
+    idx = IVFFlatIndex(D, 16, kmeans_params=tkm.KmeansParams(niter=5),
+                       device=DEVICE)
     idx.train(xb)
     idx.add(xb)
     sizes = tnp(idx.arrays.list_sizes)

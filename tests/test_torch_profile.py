@@ -9,8 +9,8 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_parity import (MAX_TOPK, N_TRAIN, NLIST, as_numpy, jax_fixture,
-                          port_state, tnp)
+from torch_parity import (DEVICE, MAX_TOPK, N_TRAIN, NLIST, as_numpy,
+                          jax_fixture, port_state, tnp)
 from auncel_tpu.profile import bounded as jb
 from auncel_tpu.profile import bounded_mr as jbm
 from auncel_tpu.profile import geometry as jg
@@ -150,8 +150,8 @@ def test_profile_npz_loads_across_packages(tmp_path):
     f = jax_fixture()
     jpath = str(tmp_path / "jax_profile.npz")
     jtr.save_trace_set(f["es"].traces, jpath)
-    ours = ttr.load_trace_set(jpath, "cpu")
-    ref = traces_from_numpy(as_numpy(f["es"].traces))
+    ours = ttr.load_trace_set(jpath, DEVICE)
+    ref = traces_from_numpy(as_numpy(f["es"].traces), DEVICE)
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(tnp(a), tnp(b))
     tpath = str(tmp_path / "port_profile.npz")

@@ -6,14 +6,22 @@ training and 20 held-out queries) is built ONCE per process with the JAX
 package: centroids, multi-row layout, ground truth and trained profile.
 ``port_state`` hands the same state to the port through
 ``auncel_tpu_torch.convert``, so both packages compute on identical data.
+``padded_systems`` gives both packages an ErrorSys on the same index
+without the multi-row layout, serving the fixture's saved profile.
 """
 
 import functools
+import os
+import tempfile
 
 import numpy as np
 import torch
 
 torch.set_num_threads(1)  # the suite runs several test processes at once
+
+# the port's entry points default to the card; its parity tests run on the
+# CPU, where every kernel's plain version runs
+DEVICE = "cpu"
 
 D, NLIST, NB = 16, 32, 4000
 N_TRAIN, N_TEST, MAX_TOPK, K = 80, 20, 20, 10
@@ -80,11 +88,38 @@ def port_state():
         ivf_arrays_from_numpy, multirow_from_numpy, traces_from_numpy)
     from auncel_tpu_torch.index.ivf import IVFFlatIndex
     f = jax_fixture()
-    arrays = ivf_arrays_from_numpy(as_numpy(f["idx"].arrays))
-    mr = multirow_from_numpy(as_numpy(f["idx"].multirow))
-    traces = traces_from_numpy(as_numpy(f["es"].traces))
+    arrays = ivf_arrays_from_numpy(as_numpy(f["idx"].arrays), DEVICE)
+    mr = multirow_from_numpy(as_numpy(f["idx"].multirow), DEVICE)
+    traces = traces_from_numpy(as_numpy(f["es"].traces), DEVICE)
     index = IVFFlatIndex.from_state(f["centers"], arrays, multirow=mr)
     return index, arrays, mr, traces
+
+
+@functools.lru_cache(maxsize=None)
+def padded_systems():
+    """(port ErrorSys, JAX ErrorSys) on the fixture's index WITHOUT the
+    multi-row layout, so both run their padded engines. The JAX index is
+    built on the fixture's centroids and vectors; the port's shares the
+    carried padded arrays. Both load the fixture's saved profile instead of
+    training again."""
+    import auncel_tpu as at
+    from auncel_tpu.index.ivf import IVFFlatIndex as JIVF
+    import auncel_tpu_torch as att
+    f = jax_fixture()
+    jidx = JIVF(D, NLIST)
+    jidx.set_centroids(f["centers"])
+    jidx.add(f["xb"])
+    _, arrays, _, _ = port_state()
+    index = att.IVFFlatIndex.from_state(f["centers"], arrays)
+    jes = at.ErrorSys(jidx, train_num=N_TRAIN + N_TEST, max_topk=MAX_TOPK)
+    es = att.ErrorSys(index, train_num=N_TRAIN + N_TEST, max_topk=MAX_TOPK)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.npz")
+        f["es"].save_profile(path)
+        for e in (es, jes):
+            e.set_gt(f["gt_D"], f["gt_I"])
+            e.load_profile(path)
+    return es, jes
 
 
 def tnp(t: torch.Tensor) -> np.ndarray:
