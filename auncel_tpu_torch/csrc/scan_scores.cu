@@ -19,23 +19,42 @@
 // is a valid result), inactive slots marked by list id -1, and no
 // n_slots % 8 rule.
 //
-// What bounds it: device-memory bandwidth. A live slot costs d * 4 bytes of
-// db plus its norm and id and one FMA per 4 bytes; every slot, live or dead,
-// costs 8 bytes of output (score and id). The design reads only what is
-// live:
-//   * one block per (query, probe slot, tile of kSlotsPerBlock list slots);
-//     a tile of an inactive slot or past list_sizes writes its worst values
-//     and exits without reading db, db_sq or vec_ids;
-//   * otherwise the tile's ids and norms and the query row are staged in
-//     shared memory, and each warp owns kSlotsPerWarp slots, reading each
-//     live slot's d floats as coalesced 16-byte loads (float4; scalar loads
-//     when d % 4 != 0 or a base pointer is not 16-byte aligned) with all of
-//     the warp's loads in flight before any is reduced, as in rowscan.cu;
-//   * fp32 FMA accumulation and a warp-shuffle reduction; the tile's
-//     scores and ids are written as one coalesced row.
-// No tensor cores, TMA or persistent grid: a query's probes that share a
-// list still each read it, and the exact top-k stays outside. Those are
-// later work.
+// What bounds it: device-memory bandwidth. The least traffic is each
+// distinct probed list's live slots read once (d * 4 bytes of db plus norm
+// and id) and 8 bytes of output (score and id) written for every slot of
+// every (query, probe slot) row, live or dead. A query-major schedule (one
+// block per (query, probe slot, tile)) reads a list once per query probing
+// it: at the 1M index's window chunk about 9 times on average, 3.9 GB where
+// the bound needs 0.55 GB. This design is list-major:
+//   * the (b, s) entries are grouped by list on the device (histogram, scan
+//     and scatter into a CSR, no host sync), and a worklist of items
+//     (list, span of kTilesPerItem tiles of the list's live slots, chunk of
+//     up to `chunk` of its entries) is written beside it. A persistent grid
+//     takes the items from an atomic counter; the chunks of one span are
+//     neighbours in the list, so a span leaves device memory once and its
+//     other chunks find it in L2. Up to `chunk` entries a call skips the
+//     worklist: each block groups the entries itself (__match_any_sync) and
+//     takes one span of kDirectTiles tiles, so batch 1 costs a single
+//     launch;
+//   * an item starts the copy of its first tile, stages its queries, and
+//     streams its tiles through a two-stage shared-memory ring with
+//     cp.async (16-byte copies; 4-byte when d % 4 != 0 or a base is not
+//     16-byte aligned). A stage is refilled as soon as its dots are taken,
+//     so two tiles' copies run under one tile's epilogue and the next
+//     tile's dots. Slots at or past list_sizes and inactive entries read
+//     nothing: separate fill units write their worst values and -1;
+//   * fp32 FMA, no tensor cores (the distance path is fp32 with no TF32).
+//     A warp takes 32 (slot, query) pairs at a time, 8 slots x 4 queries,
+//     or 16 x 2 or 32 x 1 when the chunk has one or two queries; each lane
+//     keeps the strided partial sums over its part of d, and one
+//     31-shuffle reduce-scatter leaves each lane one finished dot. The
+//     partial sums and the tree that adds them are those of the
+//     query-major design this one replaced, so the dots are bitwise the
+//     same;
+//   * the dots are staged in shared memory and each (b, s) row segment of
+//     the tile is written as one coalesced run of scores and ids.
+// Two blocks of 256 threads per SM (up to 128 registers a thread): on an
+// H100, more blocks with smaller tiles, or deeper rings, ran slower.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -43,176 +62,694 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kSlotsPerWarp = 8;
-constexpr int kSlotsPerBlock = kWarps * kSlotsPerWarp;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 2;         // blocks per SM the registers allow
+constexpr int kTilesPerItem = 8;
+constexpr int kDirectTiles = 2;       // tiles per block in direct mode
+constexpr int kStages = 2;            // db ring: two tiles in flight
+constexpr int kNormStages = 3;        // norms and ids live one step longer
+constexpr int kRingBytes = 64 * 1024;
+constexpr int kQueryBytes = 32 * 1024;
+constexpr int kMaxChunk = 32;
+constexpr int kFillRows = kWarps;     // (b, s) rows of one fill unit
+constexpr size_t kMaxSmem = 232448;   // sm_90 opt-in limit per block
 
-template <bool kVec4>
-__global__ void __launch_bounds__(kWarps * 32)
-scan_scores_kernel(const float* __restrict__ db,
-                   const float* __restrict__ db_sq,
-                   const int* __restrict__ vec_ids,
-                   const int* __restrict__ list_sizes,
-                   const float* __restrict__ q,
-                   const float* __restrict__ q_sq,
-                   const int* __restrict__ lists,
-                   float* __restrict__ scores,
-                   int* __restrict__ ids,
-                   int n_slots, int nlist, int cap, int d, int is_l2) {
-  extern __shared__ __align__(16) float q_sh[];
-  __shared__ int id_sh[kSlotsPerBlock];
-  __shared__ float sq_sh[kSlotsPerBlock];
-  __shared__ float dot_sh[kSlotsPerBlock];
+struct Config {
+  int tile;        // list slots per ring stage
+  int chunk;       // entries (queries) per item
+  int span;        // list slots per item
+  bool direct;     // n_work <= chunk: grouped in-block, no worklist
+  size_t smem;     // dynamic shared memory per block
+  long long max_items;
+};
 
-  const long long bs = blockIdx.x;  // b * n_slots + s
-  const long long b = bs / n_slots;
-  const int c0 = blockIdx.y * kSlotsPerBlock;
-  const float worst = is_l2 ? CUDART_INF_F : -CUDART_INF_F;
-  float* score_row = scores + bs * cap;
-  int* id_row = ids + bs * cap;
+Config make_config(int nlist, int cap, int d, long long n_work) {
+  Config c;
+  // a multiple of 8 slots, at most 64, that lets the ring fit kRingBytes
+  const long long fit = kRingBytes / (4LL * kStages * d) / 8 * 8;
+  c.tile = (int)(fit < 8 ? 8 : fit > 64 ? 64 : fit);
+  c.chunk = kMaxChunk;
+  while (c.chunk > 4 && (long long)c.chunk * d * 4 > kQueryBytes)
+    c.chunk >>= 1;
+  c.direct = n_work <= c.chunk;
+  c.span = c.tile * (c.direct ? kDirectTiles : kTilesPerItem);
+  // ring, queries, dots, norms and ids of the ring, q_sq and rows
+  c.smem = 4 * ((size_t)kStages * c.tile * d + (size_t)c.chunk * d +
+                (size_t)c.chunk * c.tile + 2 * kNormStages * c.tile +
+                2 * c.chunk);
+  const long long spans = (cap + c.span - 1) / c.span;
+  const long long groups =
+      n_work / c.chunk + (n_work < nlist ? n_work : nlist);
+  c.max_items = spans * groups;
+  return c;
+}
 
-  int l = lists[bs];
-  int size = 0;
-  if (l >= 0) {
-    l = l < nlist ? l : nlist - 1;
-    size = min(list_sizes[l], cap);
+struct Params {
+  const float* db;
+  const float* db_sq;
+  const int* vec_ids;
+  const int* list_sizes;
+  const float* q;
+  const float* q_sq;
+  const int* lists;
+  float* scores;
+  int* ids;
+  int n_work, n_slots, nlist, cap, d, is_l2;
+  int tile, chunk, span;
+  int n_fill;       // fill units: kFillRows rows each
+  int direct_ub;    // direct mode: blocks below it take a span, above fill
+  // worklist (null in direct mode)
+  int* counter;
+  const int* off;       // [nlist + 1] CSR offsets of the entries by list
+  const int* order;     // [n_work] entries grouped by list
+  const int2* items;    // (list, index of the item within the list)
+  const int* n_items;
+};
+
+__device__ __forceinline__ int live_size(const Params& p, int l) {
+  return min(max(p.list_sizes[l], 0), p.cap);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One step of the reduce-scatter: the lane keeps the half of v[0, 2H) that
+// its bit H selects, adds its partner's copy of that half, and moves it to
+// v[0, H).
+template <int H>
+__device__ __forceinline__ void reduce_step(float (&v)[32], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int m = 0; m < H; ++m) {
+    const float send = up ? v[m] : v[m + H];
+    const float keep = up ? v[m + H] : v[m];
+    v[m] = keep + __shfl_xor_sync(0xffffffffu, send, H);
   }
-  if (c0 >= size) {  // uniform over the block: nothing live in the tile
-    const int c = c0 + threadIdx.x;
-    if (threadIdx.x < kSlotsPerBlock && c < cap) {
-      score_row[c] = worst;
-      id_row[c] = -1;
-    }
-    return;
-  }
+}
 
-  const long long list_off = (long long)l * cap;
-  const float* qb = q + b * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) q_sh[i] = qb[i];
-  if (threadIdx.x < kSlotsPerBlock) {
-    const int c = c0 + threadIdx.x;
-    int id = -1;
-    float sq = 0.f;
-    if (c < size) {
-      id = vec_ids[list_off + c];
-      sq = db_sq[list_off + c];
-    }
-    id_sh[threadIdx.x] = id;
-    sq_sh[threadIdx.x] = sq;
-  }
-  __syncthreads();
+// Sum each of the 32 values over the warp's lanes; lane L returns the sum of
+// v[L]. Lanes are paired by xor 16, 8, 4, 2, 1, as a butterfly all-reduce
+// pairs them, so every sum is rounded exactly as in that tree.
+__device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
+  reduce_step<16>(v, lane);
+  reduce_step<8>(v, lane);
+  reduce_step<4>(v, lane);
+  reduce_step<2>(v, lane);
+  reduce_step<1>(v, lane);
+  return v[0];
+}
 
+// Worst values and id -1 for the dead part [size, cap) of each row of fill
+// unit f (every slot of an inactive row).
+__device__ void fill_unit(const Params& p, int f) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* base = db + list_off * d;
-  // the warp's slots are warp + j * kWarps (tile-local), j < kSlotsPerWarp
-  bool live[kSlotsPerWarp];
-  bool any_live = false;
-#pragma unroll
-  for (int j = 0; j < kSlotsPerWarp; ++j) {
-    live[j] = id_sh[warp + j * kWarps] >= 0;
-    any_live |= live[j];
+  const long long row = (long long)f * kFillRows + (threadIdx.x >> 5);
+  if (row >= p.n_work) return;
+  const int raw = p.lists[row];
+  const int size = raw < 0 ? 0 : live_size(p, min(raw, p.nlist - 1));
+  const float worst = p.is_l2 ? CUDART_INF_F : -CUDART_INF_F;
+  float* srow = p.scores + row * p.cap;
+  int* irow = p.ids + row * p.cap;
+  // 16-byte stores from the first 16-byte boundary at or past size
+  int body = p.cap;
+  if ((reinterpret_cast<uintptr_t>(p.scores) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(p.ids) & 15) == 0) {
+    body = min(p.cap, size + (int)((4 - ((row * p.cap + size) & 3)) & 3));
+    const float4 w4 = make_float4(worst, worst, worst, worst);
+    const int4 m4 = make_int4(-1, -1, -1, -1);
+    for (int c = body + 4 * lane; c + 4 <= p.cap; c += 128) {
+      *reinterpret_cast<float4*>(srow + c) = w4;
+      *reinterpret_cast<int4*>(irow + c) = m4;
+    }
+    for (int c = p.cap - (p.cap - body) % 4 + lane; c < p.cap; c += 32) {
+      srow[c] = worst;
+      irow[c] = -1;
+    }
   }
+  for (int c = size + lane; c < body; c += 32) {
+    srow[c] = worst;
+    irow[c] = -1;
+  }
+}
 
-  if (any_live) {  // uniform over the warp
-    float acc[kSlotsPerWarp];
-#pragma unroll
-    for (int j = 0; j < kSlotsPerWarp; ++j) acc[j] = 0.f;
+struct Smem {
+  float* ring;    // [kStages][tile][d]
+  float* qs;      // [chunk][d]
+  float* dots;    // [chunk][tile]
+  float* sq;      // [kNormStages][tile]
+  int* vid;       // [kNormStages][tile]
+  float* qsq;     // [chunk]
+  int* rows;      // [chunk]
+};
 
-    if (kVec4) {
-      const int d4 = d >> 2;
-      const float4* q4 = reinterpret_cast<const float4*>(q_sh);
-      for (int i = lane; i < d4; i += 32) {
-        float4 a[kSlotsPerWarp];
+__device__ __forceinline__ Smem carve(const Params& p, float* base) {
+  Smem s;
+  s.ring = base;
+  s.qs = s.ring + kStages * p.tile * p.d;
+  s.dots = s.qs + p.chunk * p.d;
+  s.sq = s.dots + p.chunk * p.tile;
+  s.vid = reinterpret_cast<int*>(s.sq + kNormStages * p.tile);
+  s.qsq = reinterpret_cast<float*>(s.vid + kNormStages * p.tile);
+  s.rows = reinterpret_cast<int*>(s.qsq + p.chunk);
+  return s;
+}
+
+// Copies of tile t of the item (live slots only): vectors into ring stage
+// t % kStages, norms and ids into stage t % kNormStages.
+template <bool kVec4>
+__device__ __forceinline__ void issue_tile(const Params& p, const Smem& s,
+                                           long long list_off, int c0,
+                                           int n_live, int t) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* dst = s.ring + (t % kStages) * p.tile * p.d;
+  const float* src = p.db + (list_off + c0) * p.d;
+  if (kVec4) {
+    const int d4 = p.d >> 2;
+    for (int r = warp; r < n_live; r += kWarps)
+      for (int i = lane; i < d4; i += 32)
+        cp_async16(dst + r * p.d + 4 * i, src + (long long)r * p.d + 4 * i);
+  } else {
+    for (int r = warp; r < n_live; r += kWarps)
+      for (int i = lane; i < p.d; i += 32)
+        cp_async4(dst + r * p.d + i, src + (long long)r * p.d + i);
+  }
+  if (threadIdx.x < n_live) {
+    const int j = (t % kNormStages) * p.tile + threadIdx.x;
+    cp_async4(s.sq + j, p.db_sq + list_off + c0 + threadIdx.x);
+    cp_async4(s.vid + j, p.vec_ids + list_off + c0 + threadIdx.x);
+  }
+}
+
+// The dots of the tile's first n_live slots (in ring) with the nq staged
+// queries, into s.dots. A unit is kSlots slots x 32 / kSlots queries, 32
+// dots that one reduce-scatter finishes, one per lane; each lane holds its
+// float4 (or float) of the unit's queries and streams the slots past them.
+template <bool kVec4, int kSlots>
+__device__ __forceinline__ void dot_units(const Params& p, const Smem& s,
+                                          const float* ring, int n_live,
+                                          int nq) {
+  constexpr int kQ = 32 / kSlots;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = p.d;
+  const int n_sg = (n_live + kSlots - 1) / kSlots;
+  const int n_qg = (nq + kQ - 1) / kQ;
+  if constexpr (kVec4 && kSlots == 8) {
+    if ((d >> 2) <= 32) {
+      // d <= 128: a lane's part of a slot is one float4, so a warp keeps
+      // its 8 slots in registers and runs every query group past them
+      const bool has = lane < (d >> 2);
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int sg = warp; sg < n_sg; sg += kWarps) {
+        const float* xs = ring + sg * kSlots * d;
+        float4 x[kSlots];
 #pragma unroll
-        for (int j = 0; j < kSlotsPerWarp; ++j) {
-          const long long c = c0 + warp + j * kWarps;
-          const float4* x4 = reinterpret_cast<const float4*>(base + c * d);
-          a[j] = live[j] ? __ldg(x4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j = 0; j < kSlots; ++j)
+          x[j] = has ? reinterpret_cast<const float4*>(xs + j * d)[lane]
+                     : zero;
+        for (int qg = 0; qg < n_qg; ++qg) {
+          float acc[32];
+#pragma unroll
+          for (int k = 0; k < kQ; ++k) {
+            const float* qk = s.qs + min(qg * kQ + k, nq - 1) * d;
+            const float4 v =
+                has ? reinterpret_cast<const float4*>(qk)[lane] : zero;
+#pragma unroll
+            for (int j = 0; j < kSlots; ++j) {
+              float a = fmaf(x[j].x, v.x, 0.f);
+              a = fmaf(x[j].y, v.y, a);
+              a = fmaf(x[j].z, v.z, a);
+              acc[j * kQ + k] = fmaf(x[j].w, v.w, a);
+            }
+          }
+          const float dot = reduce_scatter32(acc, lane);
+          const int k = qg * kQ + lane % kQ;
+          if (k < nq) s.dots[k * p.tile + sg * kSlots + lane / kQ] = dot;
         }
-        const float4 v = q4[i];
+      }
+      return;
+    }
+  }
+  for (int u = warp; u < n_sg * n_qg; u += kWarps) {
+    const int sg = u / n_qg, qg = u - sg * n_qg;
+    const float* xs = ring + sg * kSlots * d;
+    const float* qv[kQ];
 #pragma unroll
-        for (int j = 0; j < kSlotsPerWarp; ++j) {
-          acc[j] = fmaf(a[j].x, v.x, acc[j]);
-          acc[j] = fmaf(a[j].y, v.y, acc[j]);
-          acc[j] = fmaf(a[j].z, v.z, acc[j]);
-          acc[j] = fmaf(a[j].w, v.w, acc[j]);
+    for (int k = 0; k < kQ; ++k) qv[k] = s.qs + min(qg * kQ + k, nq - 1) * d;
+    float acc[32];
+#pragma unroll
+    for (int m = 0; m < 32; ++m) acc[m] = 0.f;
+    if (kVec4) {
+      for (int i = lane; i < (d >> 2); i += 32) {
+        float4 v[kQ];
+#pragma unroll
+        for (int k = 0; k < kQ; ++k)
+          v[k] = reinterpret_cast<const float4*>(qv[k])[i];
+#pragma unroll
+        for (int j = 0; j < kSlots; ++j) {
+          const float4 x = reinterpret_cast<const float4*>(xs + j * d)[i];
+#pragma unroll
+          for (int k = 0; k < kQ; ++k) {
+            float a = acc[j * kQ + k];
+            a = fmaf(x.x, v[k].x, a);
+            a = fmaf(x.y, v[k].y, a);
+            a = fmaf(x.z, v[k].z, a);
+            a = fmaf(x.w, v[k].w, a);
+            acc[j * kQ + k] = a;
+          }
         }
       }
     } else {
       for (int i = lane; i < d; i += 32) {
-        float a[kSlotsPerWarp];
+        float v[kQ];
 #pragma unroll
-        for (int j = 0; j < kSlotsPerWarp; ++j) {
-          const long long c = c0 + warp + j * kWarps;
-          a[j] = live[j] ? __ldg(base + c * d + i) : 0.f;
+        for (int k = 0; k < kQ; ++k) v[k] = qv[k][i];
+#pragma unroll
+        for (int j = 0; j < kSlots; ++j) {
+          const float x = xs[j * d + i];
+#pragma unroll
+          for (int k = 0; k < kQ; ++k)
+            acc[j * kQ + k] = fmaf(x, v[k], acc[j * kQ + k]);
         }
-        const float v = q_sh[i];
-#pragma unroll
-        for (int j = 0; j < kSlotsPerWarp; ++j) acc[j] = fmaf(a[j], v, acc[j]);
       }
     }
+    const float dot = reduce_scatter32(acc, lane);
+    const int k = qg * kQ + lane % kQ;
+    if (k < nq) s.dots[k * p.tile + sg * kSlots + lane / kQ] = dot;
+  }
+}
 
-    float mine = 0.f;
-#pragma unroll
-    for (int j = 0; j < kSlotsPerWarp; ++j) {
-      float v = acc[j];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == j) mine = v;
-    }
-    if (lane < kSlotsPerWarp) dot_sh[warp + lane * kWarps] = mine;
+// Scores and ids of list l's live slots [c_begin, c_end) for nq entries
+// (ents: b * n_slots + s), each slot read from device memory once.
+template <bool kVec4>
+__device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
+                          int c_end, int nq, const int* ents) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float worst = p.is_l2 ? CUDART_INF_F : -CUDART_INF_F;
+  const long long list_off = (long long)l * p.cap;
+  const int d = p.d;
+  const int n_tiles = (c_end - c_begin + p.tile - 1) / p.tile;
+  auto issue = [&](int t) {
+    const int c0 = c_begin + t * p.tile;
+    issue_tile<kVec4>(p, s, list_off, c0, min(p.tile, c_end - c0), t);
+  };
+  // Two tiles in flight: tile t + 2's copy starts as soon as tile t's dots
+  // are taken, under tile t's epilogue and tile t + 1's dots. One copy
+  // group per tile, the first with the queries; the first tile's copy
+  // starts before the entries are read. A group is committed at every
+  // step, empty past the last tile, so that "all groups but the newest"
+  // is always the tile in use.
+  issue(0);
+  if (threadIdx.x < nq) {
+    const int e = ents[threadIdx.x];
+    s.rows[threadIdx.x] = e;
+    s.qsq[threadIdx.x] = p.q_sq[e / p.n_slots];
   }
   __syncthreads();
-
-  const int t = threadIdx.x;
-  const int c = c0 + t;
-  if (t < kSlotsPerBlock && c < cap) {
-    const int id = id_sh[t];
-    float s = worst;
-    if (id >= 0) {
-      const float dot = dot_sh[t];
-      // (q_sq + db_sq) - 2 * dot, rounded step by step as the plain
-      // version does; 2 * dot is exact, so no contraction can change it
-      s = is_l2 ? fmaxf(__fsub_rn(__fadd_rn(q_sq[b], sq_sh[t]), 2.0f * dot),
-                        0.0f)
-                : dot;
+  for (int k = warp; k < nq; k += kWarps) {
+    const float* src = p.q + (long long)(s.rows[k] / p.n_slots) * d;
+    float* dst = s.qs + k * d;
+    if (kVec4) {
+      for (int i = lane; i < (d >> 2); i += 32)
+        cp_async16(dst + 4 * i, src + 4 * i);
+    } else {
+      for (int i = lane; i < d; i += 32) cp_async4(dst + i, src + i);
     }
-    score_row[c] = s;
-    id_row[c] = id;
   }
+  cp_async_commit();
+  if (n_tiles > 1) issue(1);
+  cp_async_commit();
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c0 = c_begin + t * p.tile;
+    const int n_live = min(p.tile, c_end - c0);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+
+    // dots: units of 32 (slot, query) pairs, round robin over the warps;
+    // the unit's shape follows the chunk so that few pairs are padding
+    const float* ring = s.ring + (t % kStages) * p.tile * d;
+    if (nq == 1 && p.tile % 32 == 0)
+      dot_units<kVec4, 32>(p, s, ring, n_live, nq);
+    else if (nq <= 2 && p.tile % 16 == 0)
+      dot_units<kVec4, 16>(p, s, ring, n_live, nq);
+    else
+      dot_units<kVec4, 8>(p, s, ring, n_live, nq);
+    __syncthreads();
+    if (t + 2 < n_tiles) issue(t + 2);
+    cp_async_commit();
+
+    // epilogue: one coalesced run of the tile per (b, s) row
+    const float* sq = s.sq + (t % kNormStages) * p.tile;
+    const int* vid = s.vid + (t % kNormStages) * p.tile;
+    for (int k = warp; k < nq; k += kWarps) {
+      const long long base = (long long)s.rows[k] * p.cap + c0;
+      const float q_sq = s.qsq[k];
+      for (int c = lane; c < n_live; c += 32) {
+        const int id = vid[c];
+        float score = worst;
+        if (id >= 0) {
+          const float dot = s.dots[k * p.tile + c];
+          // (q_sq + db_sq) - 2 * dot, rounded step by step as the plain
+          // version does; 2 * dot is exact, so no contraction can change it
+          score = p.is_l2
+                      ? fmaxf(__fsub_rn(__fadd_rn(q_sq, sq[c]), 2.0f * dot),
+                              0.0f)
+                      : dot;
+        }
+        p.scores[base + c] = score;
+        p.ids[base + c] = id >= 0 ? id : -1;
+      }
+    }
+  }
+  __syncthreads();  // the next item reuses the buffers
+}
+
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+scan_lists_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_unit, s_l, s_first, s_nq;
+  __shared__ int s_ents[kMaxChunk];
+  const Smem s = carve(p, smem);
+
+  if (p.items == nullptr) {
+    // direct mode: block u < direct_ub takes span u of the concatenated
+    // live spans of the distinct lists (in order of first entry)
+    if (blockIdx.x >= (unsigned)p.direct_ub) {
+      fill_unit(p, blockIdx.x - p.direct_ub);
+      return;
+    }
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const int raw = lane < p.n_work ? p.lists[lane] : -1;
+      const int l = raw < 0 ? -1 : min(raw, p.nlist - 1);
+      const unsigned group =
+          __match_any_sync(0xffffffffu, l >= 0 ? l : -1 - lane);
+      const bool lead = l >= 0 && __ffs(group) - 1 == lane;
+      const int n_t = lead ? (live_size(p, l) + p.span - 1) / p.span : 0;
+      int incl = n_t;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int u = blockIdx.x;
+      const bool hit = u >= incl - n_t && u < incl;
+      const int who = __ffs(__ballot_sync(0xffffffffu, hit)) - 1;
+      const unsigned mine = __shfl_sync(0xffffffffu, group, who < 0 ? 0 : who);
+      if (who >= 0 && ((mine >> lane) & 1u))
+        s_ents[__popc(mine & ((1u << lane) - 1u))] = lane;
+      if (hit) {
+        s_l = l;
+        s_first = (u - (incl - n_t)) * p.span;
+        s_nq = __popc(group);
+      }
+      if (lane == 0) s_unit = who;
+    }
+    __syncthreads();
+    if (s_unit < 0) return;
+    const int l = s_l;
+    scan_item<kVec4>(p, s, l, s_first,
+                     min(s_first + p.span, live_size(p, l)), s_nq, s_ents);
+    return;
+  }
+
+  const int n_items = *p.n_items;
+  const int n_units = n_items + p.n_fill;
+  for (;;) {
+    if (threadIdx.x == 0) s_unit = atomicAdd(p.counter, 1);
+    __syncthreads();
+    const int u = s_unit;
+    __syncthreads();
+    if (u >= n_units) break;
+    if (u >= n_items) {
+      fill_unit(p, u - n_items);
+      continue;
+    }
+    const int2 it = p.items[u];
+    const int l = it.x;
+    const int first = p.off[l], cnt = p.off[l + 1] - first;
+    const int n_chunks = (cnt + p.chunk - 1) / p.chunk;
+    const int span = it.y / n_chunks, ch = it.y - span * n_chunks;
+    const int c_begin = span * p.span;
+    scan_item<kVec4>(p, s, l, c_begin,
+                     min(c_begin + p.span, live_size(p, l)),
+                     min(p.chunk, cnt - ch * p.chunk),
+                     p.order + first + ch * p.chunk);
+  }
+}
+
+// ---- the worklist: entries grouped by list, items per (list, span, chunk)
+
+__global__ void count_kernel(const int* __restrict__ lists, int n_work,
+                             int nlist, int* __restrict__ cnt) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_work) return;
+  const int raw = lists[e];
+  if (raw >= 0) atomicAdd(cnt + min(raw, nlist - 1), 1);
+}
+
+constexpr int kPlanThreads = 1024;
+
+// One block: CSR offsets of the entries and of the items by list.
+__global__ void __launch_bounds__(kPlanThreads)
+plan_kernel(const int* __restrict__ cnt, const int* __restrict__ list_sizes,
+            int nlist, int cap, int chunk, int span, int* __restrict__ off,
+            int* __restrict__ cursor, int* __restrict__ item_off,
+            int* __restrict__ n_items) {
+  __shared__ int warp_e[32], warp_i[32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int per = (nlist + kPlanThreads - 1) / kPlanThreads;
+  const int lo = min(t * per, nlist), hi = min(lo + per, nlist);
+  auto items_of = [&](int l, int c) {
+    if (c == 0) return 0;
+    const int size = min(max(list_sizes[l], 0), cap);
+    return ((size + span - 1) / span) * ((c + chunk - 1) / chunk);
+  };
+  int se = 0, si = 0;
+  for (int l = lo; l < hi; ++l) {
+    const int c = cnt[l];
+    se += c;
+    si += items_of(l, c);
+  }
+  int ie = se, ii = si;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int ve = __shfl_up_sync(0xffffffffu, ie, o);
+    const int vi = __shfl_up_sync(0xffffffffu, ii, o);
+    if (lane >= o) {
+      ie += ve;
+      ii += vi;
+    }
+  }
+  if (lane == 31) {
+    warp_e[warp] = ie;
+    warp_i[warp] = ii;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int we = warp_e[lane], wi = warp_i[lane];
+    int ce = we, ci = wi;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int ve = __shfl_up_sync(0xffffffffu, ce, o);
+      const int vi = __shfl_up_sync(0xffffffffu, ci, o);
+      if (lane >= o) {
+        ce += ve;
+        ci += vi;
+      }
+    }
+    warp_e[lane] = ce - we;
+    warp_i[lane] = ci - wi;
+  }
+  __syncthreads();
+  int e0 = warp_e[warp] + ie - se, i0 = warp_i[warp] + ii - si;
+  for (int l = lo; l < hi; ++l) {
+    const int c = cnt[l];
+    off[l] = e0;
+    cursor[l] = e0;
+    item_off[l] = i0;
+    e0 += c;
+    i0 += items_of(l, c);
+  }
+  if (t == kPlanThreads - 1) {
+    off[nlist] = e0;
+    item_off[nlist] = i0;
+    *n_items = i0;
+  }
+}
+
+__global__ void scatter_kernel(const int* __restrict__ lists, int n_work,
+                               int nlist, int* __restrict__ cursor,
+                               const int* __restrict__ item_off,
+                               int* __restrict__ order,
+                               int2* __restrict__ items) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n_work) {
+    const int raw = lists[t];
+    if (raw >= 0) order[atomicAdd(cursor + min(raw, nlist - 1), 1)] = (int)t;
+  }
+  if (t < nlist) {
+    const int i0 = item_off[t], n = item_off[t + 1] - i0;
+    for (int i = 0; i < n; ++i) items[i0 + i] = make_int2((int)t, i);
+  }
+}
+
+// scratch layout in ints: counter, cnt[nlist], off[nlist + 1],
+// cursor[nlist], item_off[nlist + 1], n_items, order[n_work], (pad to even),
+// items[max_items] as int2
+long long scratch_ints(const Config& c, int nlist, long long n_work) {
+  if (c.direct) return 0;
+  long long n = 1 + nlist + (nlist + 1) + nlist + (nlist + 1) + 1 + n_work;
+  n += n & 1;
+  return n + 2 * c.max_items;
+}
+
+template <bool kVec4>
+cudaError_t prepare(int device, size_t smem, int* blocks_per_sm) {
+  static int done_smem[64][2];
+  static int occupancy[64][2];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  int& done = done_smem[device][kVec4];
+  if ((size_t)done != smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        scan_lists_kernel<kVec4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occupancy[device][kVec4], scan_lists_kernel<kVec4>, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    done = (int)smem;
+  }
+  *blocks_per_sm = occupancy[device][kVec4];
+  return cudaSuccess;
+}
+
+template <bool kVec4>
+cudaError_t launch(Params p, const Config& c, int* scratch, int device,
+                   cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t err = prepare<kVec4>(device, c.smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long n_fill = (p.n_work + kFillRows - 1) / kFillRows;
+  p.n_fill = (int)n_fill;
+  if (c.direct) {
+    p.direct_ub = p.n_work * ((p.cap + c.span - 1) / c.span);
+    scan_lists_kernel<kVec4><<<(unsigned)(p.direct_ub + n_fill), kThreads,
+                               c.smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  const int nlist = p.nlist;
+  int* counter = scratch;
+  int* cnt = counter + 1;
+  int* off = cnt + nlist;
+  int* cursor = off + nlist + 1;
+  int* item_off = cursor + nlist;
+  int* n_items = item_off + nlist + 1;
+  int* order = n_items + 1;
+  const long long pre = 1 + nlist + (nlist + 1) + nlist + (nlist + 1) + 1 +
+                        (long long)p.n_work;
+  int2* items = reinterpret_cast<int2*>(scratch + pre + (pre & 1));
+  err = cudaMemsetAsync(counter, 0, sizeof(int) * (1 + (size_t)nlist), stream);
+  if (err != cudaSuccess) return err;
+  const unsigned g_work = (unsigned)((p.n_work + 255) / 256);
+  count_kernel<<<g_work, 256, 0, stream>>>(p.lists, p.n_work, nlist, cnt);
+  plan_kernel<<<1, kPlanThreads, 0, stream>>>(cnt, p.list_sizes, nlist,
+                                              p.cap, c.chunk, c.span, off,
+                                              cursor, item_off, n_items);
+  const long long n_sc = p.n_work > nlist ? p.n_work : nlist;
+  scatter_kernel<<<(unsigned)((n_sc + 255) / 256), 256, 0, stream>>>(
+      p.lists, p.n_work, nlist, cursor, item_off, order, items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  p.counter = counter;
+  p.off = off;
+  p.order = order;
+  p.items = items;
+  p.n_items = n_items;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  long long grid = (long long)n_sm * per_sm;
+  const long long units = c.max_items + n_fill;
+  if (grid > units) grid = units;
+  scan_lists_kernel<kVec4><<<(unsigned)grid, kThreads, c.smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t) of device `device`: n_work =
-// B * n_slots (query, probe slot) pairs. Returns cudaGetLastError() after
-// the launch: 0 on success. Does not synchronise.
+// Ints of device scratch that scan_scores_launch needs for these shapes (0:
+// none, the direct mode), or -1 when its shared memory or worklist would
+// not fit.
+extern "C" long long scan_scores_scratch_ints(int nlist, int cap, int d,
+                                              long long n_work) {
+  const Config c = make_config(nlist, cap, d, n_work);
+  if (c.smem + 1024 > kMaxSmem) return -1;
+  const long long n = scratch_ints(c, nlist, n_work);
+  if (c.max_items + (n_work + kFillRows - 1) / kFillRows > 0x7fffffffLL ||
+      n > 0x7fffffffLL)
+    return -1;
+  return n;
+}
+
+// Enqueues the scan on `stream` (a cudaStream_t) of device `device`:
+// n_work = B * n_slots (query, probe slot) rows; `scratch` holds
+// scan_scores_scratch_ints(...) ints (may be null when that is 0). Returns
+// the first CUDA error of the enqueued launches (cudaGetLastError()): 0 on
+// success. Does not synchronise.
 extern "C" int scan_scores_launch(const float* db, const float* db_sq,
                                   const int* vec_ids, const int* list_sizes,
                                   const float* q, const float* q_sq,
                                   const int* lists, float* scores, int* ids,
-                                  long long n_work, int n_slots, int nlist,
-                                  int cap, int d, int is_l2, int device,
-                                  void* stream) {
+                                  int* scratch, long long n_work, int n_slots,
+                                  int nlist, int cap, int d, int is_l2,
+                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_work <= 0 || cap <= 0) return 0;
-  const dim3 grid((unsigned)n_work,
-                  (unsigned)((cap + kSlotsPerBlock - 1) / kSlotsPerBlock));
-  const size_t smem = (size_t)d * sizeof(float);
+  if (scan_scores_scratch_ints(nlist, cap, d, n_work) < 0)
+    return (int)cudaErrorInvalidValue;
+  const Config c = make_config(nlist, cap, d, n_work);
+  if (!c.direct && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.db = db;
+  p.db_sq = db_sq;
+  p.vec_ids = vec_ids;
+  p.list_sizes = list_sizes;
+  p.q = q;
+  p.q_sq = q_sq;
+  p.lists = lists;
+  p.scores = scores;
+  p.ids = ids;
+  p.n_work = (int)n_work;
+  p.n_slots = n_slots;
+  p.nlist = nlist;
+  p.cap = cap;
+  p.d = d;
+  p.is_l2 = is_l2;
+  p.tile = c.tile;
+  p.chunk = c.chunk;
+  p.span = c.span;
   const bool vec4 = (d % 4 == 0) && ((uintptr_t)db % 16 == 0) &&
                     ((uintptr_t)q % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    scan_scores_kernel<true><<<grid, kWarps * 32, smem, s>>>(
-        db, db_sq, vec_ids, list_sizes, q, q_sq, lists, scores, ids, n_slots,
-        nlist, cap, d, is_l2);
-  } else {
-    scan_scores_kernel<false><<<grid, kWarps * 32, smem, s>>>(
-        db, db_sq, vec_ids, list_sizes, q, q_sq, lists, scores, ids, n_slots,
-        nlist, cap, d, is_l2);
-  }
-  return (int)cudaGetLastError();
+  err = vec4 ? launch<true>(p, c, scratch, device, s)
+             : launch<false>(p, c, scratch, device, s);
+  return (int)err;
 }

@@ -13,27 +13,32 @@ TPU kernel ``auncel_tpu/pallas_kernels/scan_scores.py::scan_scores_pallas``
 with the JAX package's XLA-scan semantics: stored norms, padding by id (an
 exact-zero stored vector is a valid result, where the TPU kernel treats
 zero norm as padding), list id -1 for a masked probe and no
-``n_slots % 8`` rule. It is bound by device-memory bandwidth and reads only
-live slots; see the source.
+``n_slots % 8`` rule. It is bound by device-memory bandwidth. It is
+list-major: the probes are grouped by list on the device, and each probed
+list's live slots are read once per chunk of up to 32 of the queries that
+probe it; see the source.
 
 ``scan_scores`` runs the kernel for CUDA tensors and the plain version,
 ``scan_scores_ref``, for CPU tensors. A CUDA tensor never falls back: the
 kernel launches or the wrapper raises. ``scan_scores.launches`` counts the
-kernel launches.
+calls that launched it: one call enqueues the scan and, when there are
+more probes than one chunk of queries, the small kernels that build its
+worklist.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from auncel_tpu_torch.kernels import build
 from auncel_tpu_torch.types import Metric, worst_value
 
-# dynamic shared memory holds one query row beside the kernel's 768 bytes of
-# static shared memory; above 48 KB in all a launch would need an opt-in
-MAX_D = (48 * 1024 - 1024) // 4
-MAX_CAP = 65535 * 64      # grid.y limit x slots per block
-MAX_WORK = 2**31 - 1      # grid.x limit on B * n_slots
+# a block's shared memory holds at least two 8-slot tiles of the list and
+# four query rows (80 * d bytes and change) within the card's 227 KB
+MAX_D = 2880
+MAX_CAP = 2**31 - 1       # slot indices are int32
+MAX_WORK = 2**31 - 1      # entry indices are int32
 
 
 def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
@@ -115,10 +120,22 @@ def scan_scores(db: torch.Tensor, db_sq: torch.Tensor, vec_ids: torch.Tensor,
     ids = torch.empty((B, S * cap), dtype=torch.int32, device=db.device)
     if B * S == 0 or cap == 0:
         return scores, ids
-    err = _launcher()(
+    lib = _library()
+    # the worklist's scratch (none up to one chunk of entries)
+    n_scratch = lib.scan_scores_scratch_ints(nlist, cap, d, B * S)
+    if n_scratch < 0:
+        raise ValueError(f"scan_scores: the worklist for B * n_slots = "
+                         f"{B * S} over cap {cap} does not fit int32")
+    # freed on return while the kernels may still run: the caching
+    # allocator hands it out again only to work queued after them on this
+    # stream
+    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=db.device)
+               if n_scratch else None)
+    err = lib.scan_scores_launch(
         db.data_ptr(), db_sq.data_ptr(), vec_ids.data_ptr(),
         list_sizes.data_ptr(), q.data_ptr(), q_sq.data_ptr(),
-        lists.data_ptr(), scores.data_ptr(), ids.data_ptr(), B * S, S, nlist,
+        lists.data_ptr(), scores.data_ptr(), ids.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B * S, S, nlist,
         cap, d, int(metric is Metric.L2), db.device.index,
         torch.cuda.current_stream(db.device).cuda_stream)
     if err != 0:
@@ -131,11 +148,16 @@ def scan_scores(db: torch.Tensor, db_sq: torch.Tensor, vec_ids: torch.Tensor,
 scan_scores.launches = 0
 
 
-def _launcher():
+@functools.cache
+def _library():
     lib = build.load("scan_scores")
+    fn = lib.scan_scores_scratch_ints
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
     fn = lib.scan_scores_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return lib

@@ -7,8 +7,10 @@ each kernel against its plain PyTorch version on synthetic inputs; the
 bounded-search main path on the multi-row layout (K1 in search, K2 in
 profile training); the padded path on the same index without the multi-row
 layout (K2 throughout, with the two-phase window held to single phase on a
-strict window whose stragglers take phase B); each kernel against its plain version on the
-index's own arrays. Every path is driven through the port's public entry
+strict window whose stragglers take phase B); each kernel against its
+plain version on the index's own arrays, K2 at the shapes the main path
+gives it (the window's waves, a training chunk, batch 1 and one list
+probed by every query). Every path is driven through the port's public entry
 points on their default device, with the kernels' launch counts set to 0
 just before it and read just after. Exits non-zero when there is no CUDA
 device or any phase fails. The last line of stdout is
@@ -17,7 +19,18 @@ device or any phase fails. The last line of stdout is
     python3 chip_smoke.py [--profile DIR]
 
 ``--profile DIR`` also writes torch.profiler tables of one batched and one
-batch-1 search on each path.
+batch-1 search on each path, and of one two-phase and one single-phase run
+of the phase-B window.
+
+    python3 chip_smoke.py --kernels
+
+builds and checks the kernels on synthetic inputs and on the index's own
+arrays, prints their ``[k1]``/``[k2]`` lines and stops: no serving path, no
+JSON lines. It times whichever ``auncel_tpu_torch`` is first on
+``sys.path``, so run from another tree's root with
+``python3 -c "import runpy, sys; sys.argv = ['chip_smoke.py', '--kernels'];
+runpy.run_path('PATH/chip_smoke.py', run_name='__main__')"`` it times that
+tree's kernels on the same shapes.
 """
 
 import json
@@ -211,14 +224,18 @@ def k2_compare(name, args, metric, card: str, reps: int = 20,
     del got_s, got_i, want_s, want_i
     t_k, t_ref = time_pair(lambda: scan_scores(*args, metric),
                            lambda: scan_scores_ref(*args, metric), reps)
+    t_dev = device_ms(lambda: scan_scores(*args, metric), 20)
+    dev = "not measured" if t_dev is None else f"{t_dev:.4f} ms"
     work = k2_work(*args)
     B, S = args[6].shape
     log(f"[k2] {name}: B={B} n_slots={S} cap={args[0].shape[1]} "
         f"d={args[0].shape[2]} {metric.name} max_abs_err={err:.3g} max rel "
         f"err={rel:.3g} ({tol}) kernel {t_k:.4f} ms "
-        f"({work['live_bytes'] / t_k / 1e6:.1f} GB/s of live bytes) plain "
-        f"{t_ref:.4f} ms; bound {work['bound_ms']:.4f} ms "
-        f"({work['bound_by']}, {work['bound_bytes'] / 1e9:.3f} GB), "
+        f"({work['bound_bytes'] / t_k / 1e6:.1f} GB/s of the bound's bytes; "
+        f"{work['live_bytes'] / t_k / 1e6:.1f} GB/s of live bytes, once per "
+        f"probe), device time a call {dev}; plain {t_ref:.4f} ms; "
+        f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}, "
+        f"{work['bound_bytes'] / 1e9:.3f} GB), "
         f"{100 * work['bound_ms'] / t_k:.1f} % of it [{card}]")
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_ref,
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
@@ -454,7 +471,7 @@ def padded_path(c: dict, card: str, profile_dir: str | None) -> dict:
     window = serve_window(es, gt_D, card, "padded")
     times["search"] = window["seconds"]
     lat = serve_batch1(es, N_LATENCY_PADDED, card, "padded latency")
-    phase_b(es, gt_D, card)
+    phase_b(es, gt_D, card, profile_dir)
     launches = launch_counts()
     log("[padded stages] " + " ".join(f"{k}={v:.2f}s"
                                       for k, v in times.items())
@@ -472,7 +489,7 @@ def padded_path(c: dict, card: str, profile_dir: str | None) -> dict:
     return launches
 
 
-def phase_b(es, gt_D, card: str) -> dict:
+def phase_b(es, gt_D, card: str, profile_dir: str | None = None) -> dict:
     """The two-phase path with stragglers, against single-phase
     ``bounded_search`` on the same window. Every held-out query's bound is
     raised to recall@10 = 1.0, so that queries still undecided near nlist/8
@@ -538,6 +555,9 @@ def phase_b(es, gt_D, card: str) -> dict:
         f"n_scanned differ {bad_ns}, max |D| diff {d_err:.3g} [{card}]")
     check(bad_ids == 0 and bad_ns == 0 and d_err == 0.0,
           "two-phase and single-phase windows differ")
+    if profile_dir:
+        profile_call(two, profile_dir, card, "phase B two-phase")
+        profile_call(single, profile_dir, card, "phase B single-phase")
     es.set_queries(es.num, es.queries, saved[0])
     es.multipler = saved[1]
     return {"two_ms": ms_two, "single_ms": ms_one, "stragglers": stragglers}
@@ -572,47 +592,89 @@ def kernels_on_index(c: dict, device, card: str) -> dict:
         f"{rel:.3g} kernel {t_k:.4f} ms ({gb / t_k * 1e3:.1f} GB/s) "
         f"plain {t_ref:.4f} ms ({gb / t_ref * 1e3:.1f} GB/s) [{card}]")
     del got, want
-    # the two-phase window's first chunk: 1000 held-out queries, each on
-    # its 4 best-ranked lists
+    # K2 at the shapes the main path gives it. The two-phase window's first
+    # chunk (1000 held-out queries, each on its 4 best-ranked lists) is the
+    # kernels line's entry, as in earlier runs.
     q = xq_d[N_TRAIN_Q:N_TRAIN_Q + N_TEST_Q].contiguous()
     q_sq = sqnorms(q)
-    _, cids = coarse_rank(a, q, Metric.L2, q_sq=q_sq, rank_k=4)
-    args = (a.db, a.db_sq, a.vec_ids, a.list_sizes, q, q_sq,
-            cids.contiguous())
-    out = k2_compare("index window chunk", args, Metric.L2, card, reps=10,
-                     terms_tol=True)
-    torch.cuda.empty_cache()
+    _, cids = coarse_rank(a, q, Metric.L2, q_sq=q_sq, rank_k=8)
+    qt = xq_d[:N_TRAIN_Q].contiguous()
+    qt_sq = sqnorms(qt)
+    _, tids = coarse_rank(a, qt, Metric.L2, q_sq=qt_sq, rank_k=68)
+    largest = int(torch.argmax(a.list_sizes))
+    shapes = (
+        ("index window chunk", q, q_sq, cids[:, :4], 10),
+        ("index window wave, 1 slot", q, q_sq, cids[:, :1], 10),
+        ("index window wave, 2 slots", q, q_sq, cids[:, :2], 10),
+        ("index training chunk, ranks 64-67", qt, qt_sq, tids[:, 64:68], 10),
+        ("index batch 1, 1 slot", q[:1], q_sq[:1], cids[:1, :1], 200),
+        ("index batch 1, 8 slots", q[:1], q_sq[:1], cids[:1, :8], 200),
+        ("index skewed, all queries on the largest list", q, q_sq,
+         torch.full((N_TEST_Q, 1), largest, dtype=torch.int32,
+                    device=device), 10))
+    out = None
+    for name, qq, qq_sq, lists, reps in shapes:
+        args = (a.db, a.db_sq, a.vec_ids, a.list_sizes, qq.contiguous(),
+                qq_sq.contiguous(), lists.contiguous())
+        res = k2_compare(name, args, Metric.L2, card, reps=reps,
+                         terms_tol=True)
+        out = out or res
+        torch.cuda.empty_cache()
     return out
 
 
 def profile_search(es, out_dir: str, card: str, label: str) -> None:
     """Kernel-time breakdown of one batched and one batch-1 search."""
+    for name, size in (("batched", N_TEST_Q), ("batch1", 1)):
+        profile_call(lambda: es.search(N_TRAIN_Q, size), out_dir, card,
+                     f"{label} {name}")
+
+
+def profile_call(fn, out_dir: str, card: str, label: str) -> None:
+    """torch.profiler table of one warm call of fn, with its wall time and
+    the device's busy time."""
     import os
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
-    for name, size in (("batched", N_TEST_Q), ("batch1", 1)):
-        es.search(N_TRAIN_Q, size)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            es.search(N_TRAIN_Q, size)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        table = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=25)
-        # the device's own events only: an operator's row repeats the time
-        # of the kernels it launched
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA)
-        with open(os.path.join(out_dir, f"profile_{label}_{name}.txt"),
-                  "w") as f:
-            f.write(f"{card}\nwall {wall * 1e3:.2f} ms, device "
-                    f"{dev_us / 1e3:.2f} ms\n{table}\n")
-        log(f"[profile] {label} {name}: wall {wall * 1e3:.2f} ms, device busy "
-            f"{dev_us / 1e3:.2f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f}"
-            f"%) [{card}]")
+        wall = time.perf_counter() - t0
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=25)
+    # the device's own events only: an operator's row repeats the time
+    # of the kernels it launched
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    name = label.replace(" ", "_")
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+        f.write(f"{card}\nwall {wall * 1e3:.2f} ms, device "
+                f"{dev_us / 1e3:.2f} ms\n{table}\n")
+    log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, device busy "
+        f"{dev_us / 1e3:.2f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f}"
+        f"%) [{card}]")
+
+
+def device_ms(fn, reps: int) -> float | None:
+    """The device's own time per call of fn (every kernel and copy it
+    enqueues, without the host's gaps), from torch.profiler; None when the
+    profiler recorded no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None
 
 
 def main() -> int:
@@ -645,6 +707,10 @@ def main() -> int:
     k1 = k1_check(device, card)
     k2_check(device, card)
     corpus = build_corpus(card)
+    if "--kernels" in sys.argv:
+        kernels_on_index(corpus, device, card)
+        log(f"[total] {time.perf_counter() - t0:.1f} s (kernels only)")
+        return 0
     mr_launches = multirow_path(corpus, card, profile_dir)
     pad_launches = padded_path(corpus, card, profile_dir)
     k2 = kernels_on_index(corpus, device, card)

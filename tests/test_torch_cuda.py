@@ -108,6 +108,67 @@ def test_k2_matches_plain_version():
             assert torch.equal(ids, want_i)
 
 
+def _lists_one_list(B, S, nlist, gen, dev):
+    return torch.full((B, S), 3, dtype=torch.int32, device=dev)
+
+
+def _lists_inactive(B, S, nlist, gen, dev):
+    return torch.full((B, S), -1, dtype=torch.int32, device=dev)
+
+
+def _lists_repeated(B, S, nlist, gen, dev):
+    lists = torch.randint(0, nlist, (B, S), generator=gen, device=dev,
+                          dtype=torch.int32)
+    lists[0, 0] = nlist - 1
+    lists[:, 1] = lists[:, 0]
+    lists[0, 2] = nlist + 3          # clamps onto nlist - 1 as well
+    return lists
+
+
+def _lists_past_nlist(B, S, nlist, gen, dev):
+    return torch.randint(nlist, nlist + 4, (B, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+# (nlist, cap, d, B, n_slots, lists or None for padded_inputs' own, whether
+# every list is empty): the list-major kernel's edge cases
+K2_CASES = {
+    "one list, more queries than a chunk": (16, 300, 128, 100, 1,
+                                            _lists_one_list, False),
+    "batch 1, one slot": (64, 1000, 128, 1, 1, None, False),
+    "batch 1, eight slots": (64, 1000, 128, 1, 8, None, False),
+    "every slot inactive": (16, 300, 128, 40, 3, _lists_inactive, False),
+    "lists of size 0": (16, 300, 128, 40, 3, None, True),
+    "one list twice in a row": (16, 300, 128, 50, 3, _lists_repeated, False),
+    "batch 1, one list three times": (16, 300, 128, 1, 3, _lists_repeated,
+                                      False),
+    "ids past nlist": (16, 300, 128, 40, 2, _lists_past_nlist, False),
+    "cap not a multiple of the tile": (32, 1000, 128, 64, 4, None, False),
+    "d = 100, the scalar path": (32, 300, 100, 64, 3, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_list_major_cases(case):
+    dev = _card()
+    nlist, cap, d, B, n_slots, make_lists, empty = K2_CASES[case]
+    args = list(padded_inputs(nlist, cap, d, B, n_slots, dev, seed=3))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if make_lists is not None:
+        args[6] = make_lists(B, n_slots, nlist, gen, dev)
+    if empty:
+        args[3] = torch.zeros_like(args[3])
+    for metric in (Metric.L2, Metric.IP):
+        before = scan_scores.launches
+        scores, ids = scan_scores(*args, metric)
+        torch.cuda.synchronize()
+        assert scan_scores.launches == before + 1
+        want_s, want_i = scan_scores_ref(*args, metric)
+        assert torch.equal(ids, want_i)
+        torch.testing.assert_close(scores, want_s, rtol=1e-5, atol=1e-5)
+
+
 def _slice(device):
     """The main path after k-means, at the parity fixture's size."""
     centers, xb, xq = make_data()

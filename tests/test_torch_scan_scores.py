@@ -141,6 +141,33 @@ def test_inactive_slots_ragged_lists_and_clamped_ids(metric):
     assert scores.shape == (B, 5 * CAP)
 
 
+# the list-major kernel's edge cases, held on the plain version that the
+# card tests (tests/test_torch_cuda.py) hold the kernel to
+EDGE_LISTS = {
+    "one list for every probe": np.full((B, N_SLOTS), 4, np.int32),
+    "every probe inactive": np.full((B, N_SLOTS), -1, np.int32),
+    "a list several times in a row, directly and by the clamp":
+        np.asarray([[5, 5, 9, 0, 5, 2, 5, 1], [1, 3, 1, 6, 8, 1, 0, 0],
+                    [2, 2, 2, 2, 2, 2, 2, 2]], np.int32)[:, :N_SLOTS],
+    "ids past nlist only": np.full((B, N_SLOTS), N_LISTS + 1, np.int32),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_LISTS))
+def test_plain_version_edge_cases(case):
+    rng = np.random.RandomState(10)
+    db, ids, sizes, q = _layout(rng)
+    sizes[1] = 0                        # an empty list, probed above
+    ids[1] = -1
+    db[1] = 0.0
+    lists = EDGE_LISTS[case]
+    for metric in (Metric.L2, Metric.IP):
+        scores, got_ids = _port(db, ids, sizes, q, lists, metric)
+        want, want_ids = _numpy_scan(db, ids, sizes, q, lists, metric)
+        np.testing.assert_allclose(tnp(scores), want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(tnp(got_ids), want_ids)
+
+
 def test_cpu_runs_plain_version_without_counting():
     rng = np.random.RandomState(9)
     db, ids, sizes, q = _layout(rng)
