@@ -18,6 +18,11 @@ the JAX package's.
 iff ``ik < limit[b]``, so a batch runs one shape while each query scans
 exactly its own lists.
 
+The dense passes (``masked_full_scan``, ``dense_stage_snapshots``) read the
+row corpus once for a whole batch with one fp32 matmul per block, masked by
+each list's coarse rank per query: the JAX package computes them with an
+XLA einsum, not a Pallas kernel.
+
 Only float32 storage is ported. The SQ, PQ-residual and polysemous branches
 of the JAX package raise ``NotImplementedError`` here.
 """
@@ -189,3 +194,125 @@ def ivf_full_scan(arrays: IVFArrays, q: torch.Tensor, k: int,
         vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
                                 torch.cat([ids, cand_ids], dim=-1), k, metric)
     return vals, ids
+
+
+def inverse_rank(cids: torch.Tensor, nlist: int) -> torch.Tensor:
+    """[B, nlist] int32 coarse rank of each list per query, from the ranked
+    prefix ``cids`` [B, r]; lists outside the prefix get rank nlist."""
+    B, r = cids.shape
+    ranks = torch.arange(r, dtype=torch.int32, device=cids.device)
+    return torch.full((B, nlist), nlist, dtype=torch.int32,
+                      device=cids.device).scatter_(
+        1, cids.long(), ranks.expand(B, r).contiguous())
+
+
+def _block_scores(rows: RowArrays, row_list, inv_rank, q, q_sq, s: int,
+                  e: int, metric: Metric):
+    """Scores [B, n, row_cap] of rows [s, e) against every query (one fp32
+    matmul, the JAX package's einsum outside any Pallas kernel), their
+    lists' per-query ranks [B, n] and the rows' live-slot mask [n, row_cap]."""
+    B, d = q.shape
+    blk = rows.db[s:e]
+    dots = (q @ blk.reshape(-1, d).T).reshape(B, e - s, -1)
+    if metric is Metric.L2:
+        scores = (q_sq[:, None, None] + rows.db_sq[s:e][None]
+                  - 2.0 * dots).clamp_min(0.0)
+    else:
+        scores = dots
+    lists = row_list[s:e]
+    ranks = inv_rank[:, lists.clamp_min(0).long()]
+    live = (rows.vec_ids[s:e] >= 0) & (lists >= 0)[:, None]
+    return scores, ranks, live
+
+
+def masked_full_scan(rows: RowArrays, row_list: torch.Tensor,
+                     inv_rank: torch.Tensor, target: torch.Tensor,
+                     q: torch.Tensor, q_sq: torch.Tensor, k: int,
+                     metric: Metric, block_rows: int = 256,
+                     merge_blocks: int = 1):
+    """The dense crossover: the exact top-k over each query's first
+    ``target[b]`` coarse-ranked lists as ONE shared pass over the row
+    corpus (the reference's ``distance_compute_blas_threshold`` switch to
+    a blocked GEMM, utils.cpp:538-622), instead of private row gathers. A
+    (query, vector) pair is a candidate iff the vector's list ranks below
+    the query's budget: the gather tail's candidate set, so the result is
+    the same top-k up to the product's rounding. Blocks of ``block_rows``
+    rows, ``merge_blocks`` blocks per exact merge; a merge is skipped when
+    no candidate in its window beats any query's current k-th (exact: the
+    skipped candidates lose to every kept one). One host sync per merge
+    window. Returns (vals [B, k], ids)."""
+    check_f32_storage(rows)
+    B = q.shape[0]
+    R = rows.vec_ids.shape[0]
+    worst = worst_value(metric)
+    W = max(1, min(block_rows, R)) * max(1, merge_blocks)
+    vals, ids = init_topk((B,), k, metric, q.device)
+    for s in range(0, R, W):
+        e = min(s + W, R)
+        scores, ranks, live = _block_scores(rows, row_list, inv_rank, q, q_sq,
+                                            s, e, metric)
+        active = (ranks < target[:, None])[:, :, None] & live[None]
+        scores = torch.where(active, scores, worst).reshape(B, -1)
+        sub_ids = torch.where(active, rows.vec_ids[s:e][None], -1).reshape(
+            B, -1)
+        if metric.lower_is_better:
+            improving = (scores.amin(1) < vals[:, k - 1]).any()
+        else:
+            improving = (scores.amax(1) > vals[:, k - 1]).any()
+        if bool(improving):
+            vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
+                                    torch.cat([ids, sub_ids], dim=-1), k,
+                                    metric)
+    return vals, ids
+
+
+def dense_stage_snapshots(rows: RowArrays, row_list: torch.Tensor,
+                          inv_rank: torch.Tensor, q: torch.Tensor,
+                          q_sq: torch.Tensor, stages: tuple, k: int,
+                          metric: Metric, block_rows: int = 128
+                          ) -> torch.Tensor:
+    """Per-stage top-k VALUE snapshots from ONE shared corpus pass:
+    [B, len(stages), k] sorted best-first, entry j the exact top-k values
+    over each query's first ``stages[j]`` coarse-ranked lists (the snapshot
+    the termination predicate reads at that boundary, IndexIVF.cpp:551-568).
+    Each candidate lands in the rank bucket stages[j-1] <= rank < stages[j]
+    of its list; buckets are disjoint, so one running top-k per bucket and
+    a cumulative union after the pass give every stage. A bucket's merge is
+    skipped when no candidate of the block beats any query's k-th in it
+    (one host sync per block)."""
+    check_f32_storage(rows)
+    B = q.shape[0]
+    R = rows.vec_ids.shape[0]
+    worst = worst_value(metric)
+    lower = metric.lower_is_better
+    n_st = len(stages)
+    bounds = torch.tensor(stages, dtype=torch.long, device=q.device)
+    snap = [torch.full((B, k), worst, dtype=torch.float32, device=q.device)
+            for _ in range(n_st)]
+    C = max(1, min(block_rows, R))
+    for s in range(0, R, C):
+        e = min(s + C, R)
+        scores, ranks, live = _block_scores(rows, row_list, inv_rank, q, q_sq,
+                                            s, e, metric)
+        flat = torch.where(live[None], scores, worst).reshape(B, -1)
+        # bucket j = #(stages <= rank); n_st is past the last stage
+        bucket = torch.bucketize(ranks.long(), bounds, right=True)
+        bucket = bucket[:, :, None].expand(scores.shape).reshape(B, -1)
+        best = torch.full((B, n_st + 1), worst, dtype=torch.float32,
+                          device=q.device).scatter_reduce(
+            1, bucket, flat, "amin" if lower else "amax")
+        kth = torch.stack([sn[:, k - 1] for sn in snap], dim=1)
+        gain = (best[:, :n_st] < kth) if lower else (best[:, :n_st] > kth)
+        for j, improving in enumerate(gain.any(0).tolist()):
+            if improving:
+                cand = torch.cat([snap[j], torch.where(bucket == j, flat,
+                                                       worst)], dim=-1)
+                snap[j] = torch.topk(cand, k, dim=-1, largest=not lower,
+                                     sorted=True).values
+    outs = []
+    run = torch.full((B, k), worst, dtype=torch.float32, device=q.device)
+    for j in range(n_st):
+        run = torch.topk(torch.cat([run, snap[j]], dim=-1), k, dim=-1,
+                         largest=not lower, sorted=True).values
+        outs.append(run)
+    return torch.stack(outs, dim=1)

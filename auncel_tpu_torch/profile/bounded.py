@@ -13,12 +13,14 @@ multipler)`` and from then on scans only probe slots below it (the
 slots). A wave nobody needs is skipped; deciding that costs one host sync
 per wave (a Python ``if`` where the JAX package has ``lax.cond``).
 
-``bounded_search`` is the single-phase engine. The two-phase path runs
-``bounded_search_decide`` (the decision waves only, on a ranking prefix)
-and then ``finish_scan`` over each query's remaining budget. Not ported
-yet: the profile-mode true-recall count (``with_true_recall``), the
-externally ranked on-disk decide phase, and the budgeted and fixed-count
-searches.
+``bounded_search`` is the single-phase engine; with ``with_true_recall``
+it also counts each query's true recall against the ground truth's k-th
+distance (profile mode). The two-phase path runs ``bounded_search_decide``
+(the decision waves only, on a ranking prefix) and then ``finish_scan``
+over each query's remaining budget. ``nprobe_search`` scans exact
+per-query probe counts and ``budgeted_search`` converts latency budgets to
+such counts (the time-budget mode). Not ported yet: the externally ranked
+on-disk decide phase (``bounded_search_decide_ranked``).
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ from auncel_tpu_torch.profile.trace import TraceSet, trace_lookup
 from auncel_tpu_torch.profile.trainer import train_stages
 
 FULL_OK_SLACK = 1.005       # cur_num's all-k fast path (IVF_pro.cpp:276)
+TRUE_RECALL_SLACK = 1.0005  # profile-mode true-recall count (IndexIVF.cpp:584)
 STAGNATION_FACTOR = 12.0    # stops = require_acc * 12 (IndexIVF.cpp:575)
 
 
@@ -109,6 +112,20 @@ def exact_topk_mask(require_acc: torch.Tensor, query_k: int) -> torch.Tensor:
     return require_acc * float(query_k) > float(query_k) - 1.0 + 1e-4
 
 
+def true_recall(vals: torch.Tensor, gt_kth: torch.Tensor, my_np: torch.Tensor,
+                query_k: int, nlist: int, metric: Metric) -> torch.Tensor:
+    """Profile mode's achieved recall (IndexIVF.cpp:578-588,624-627): the
+    running top-k entries within the ground truth's k-th distance, capped at
+    query_k as the reference logs it (profile.cpp:246-280); 1.0 for a query
+    that scanned every list."""
+    if metric is Metric.L2:
+        cnt = (vals <= gt_kth[:, None] * TRUE_RECALL_SLACK).sum(1)
+    else:
+        cnt = (vals >= gt_kth[:, None] * (2.0 - TRUE_RECALL_SLACK)).sum(1)
+    rec = cnt.clamp_max(query_k).to(torch.float32) / float(query_k)
+    return torch.where(my_np >= nlist, 1.0, rec)
+
+
 def _decide_at_stage(traces, dtb, vals, stage, nlist, query_k, max_topk,
                      std_m, metric, exact_mask=None):
     """The per-boundary termination predicate (IndexIVF.cpp:551-568) on the
@@ -133,6 +150,7 @@ def bounded_search(
     require_acc: torch.Tensor,  # [B] float32 per-query required recall
     multipler: torch.Tensor,    # 0-d float32 calibration
     std_m: torch.Tensor,        # 0-d float32 conservativeness
+    gt_kth: torch.Tensor,       # [B] GT k-th distance (profile mode) or zeros
     query_k: int,
     max_topk: int,
     metric: Metric,
@@ -140,13 +158,16 @@ def bounded_search(
     decide_margin: bool = False,
 ):
     """Single-phase bounded search over the padded lists. Returns (vals
-    [B, max_topk], ids, my_nprobe [B], n_scanned [B])."""
+    [B, max_topk], ids, my_nprobe [B], n_scanned [B], true_recall [B]);
+    true_recall is zeros unless ``with_true_recall``."""
+    vals, ids, my_np, n_scanned = _bounded_impl(
+        arrays, traces, q, require_acc, multipler, std_m, query_k, max_topk,
+        metric, decide_only=False, decide_margin=decide_margin)
     if with_true_recall:
-        raise NotImplementedError(
-            "profile mode (the true-recall count) is not ported yet")
-    return _bounded_impl(arrays, traces, q, require_acc, multipler, std_m,
-                         query_k, max_topk, metric, decide_only=False,
-                         decide_margin=decide_margin)
+        t_rec = true_recall(vals, gt_kth, my_np, query_k, arrays.nlist, metric)
+    else:
+        t_rec = torch.zeros(q.shape[0], dtype=torch.float32, device=q.device)
+    return vals, ids, my_np, n_scanned, t_rec
 
 
 def bounded_search_decide(
@@ -246,3 +267,38 @@ def _bounded_impl(arrays, traces, q, require_acc, multipler, std_m, query_k,
         return vals, ids, my_np, decided_at, cids, q_sq
     n_scanned = torch.maximum(my_np, decided_at).clamp_max(nlist)
     return vals, ids, my_np, n_scanned
+
+
+def budgeted_search(arrays: IVFArrays, q: torch.Tensor,
+                    budget_ms: torch.Tensor, per_probe_ms: torch.Tensor,
+                    max_topk: int, metric: Metric):
+    """Latency-budget mode (reference ``time_search``, IndexIVF.cpp:545-549:
+    break when elapsed >= 0.95 * budget - one probe). The budget converts up
+    front to a probe count under a calibrated per-probe cost t, n =
+    ceil(0.95 * budget / t - 1), in float32 as in the JAX package (float64
+    flips counts that land near integers). Returns (vals, ids, n_probes)."""
+    n_budget = torch.ceil(0.95 * budget_ms / per_probe_ms - 1.0)
+    return nprobe_search(arrays, q, n_budget, max_topk, metric)
+
+
+def nprobe_search(arrays: IVFArrays, q: torch.Tensor, n_probes: torch.Tensor,
+                  max_topk: int, metric: Metric):
+    """Exact per-query probe-count scan (the replay entry point: callers
+    pass counts, never round-trip them through the float budget model).
+    Scans the wave boundaries' ranges up to the largest count, each query
+    masked to its own. Returns (vals, ids, n_probes clipped to [1, nlist])."""
+    B = q.shape[0]
+    nlist = arrays.nlist
+    q_sq = sqnorms(q)
+    _, cids = coarse_rank(arrays, q, metric, q_sq=q_sq)
+    vals, ids = init_topk((B,), max_topk, metric, q.device)
+    n_budget = n_probes.clamp(1, nlist).to(torch.int32)
+    most = int(n_budget.max()) if B else 0   # one host sync
+    prev = 0
+    for stage in wave_boundaries(nlist):
+        if prev >= most:
+            break
+        vals, ids = scan_probe_range(arrays, q, q_sq, cids, vals, ids,
+                                     n_budget, prev, stage - prev, metric)
+        prev = stage
+    return vals, ids, n_budget

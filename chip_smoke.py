@@ -3,24 +3,38 @@
     python3 chip_smoke.py
 
 Phases: the card; the kernels' build (one nvcc per source, in parallel);
-each kernel against its plain PyTorch version on synthetic inputs; the
-bounded-search main path on the multi-row layout (K1 in search, K2 in
-profile training); the padded path on the same index without the multi-row
-layout (K2 throughout, with the two-phase window held to single phase on a
-strict window whose stragglers take phase B); each kernel against its
-plain version on the index's own arrays, K2 at the shapes the main path
-gives it (the window's waves, a training chunk, batch 1 and one list
-probed by every query). Every path is driven through the port's public entry
-points on their default device, with the kernels' launch counts set to 0
-just before it and read just after. Exits non-zero when there is no CUDA
-device or any phase fails. The last line of stdout is
+each kernel against its plain PyTorch version on synthetic inputs (K1 also
+at the one-shot engine's tail-round shape); the bounded-search main path on
+the multi-row layout (K1 in search, K2 in profile training): calibration
+with its measured dense crossover, the held-out window through the one-shot
+engine and batch-1 windows, then
+  [oneshot]        the 0.9 window, one-shot against the wave engine;
+  [oneshot strict] the window at bound 1.0 with stragglers past nlist/8,
+                   one-shot against the wave engine, and the dense routes
+                   (the per-query crossover, every query dense) against
+                   gather;
+  [dense decide]   the 0.9 window with the decisions from one corpus pass;
+  [profile mode]   t_recalls of the 0.9 window;
+  [stream]         search_stream against search over the same windows;
+  [time mode]      calibrate_time, time_search at batch 1 over 200 budgets,
+                   nprobe_search_mr against the fixed-nprobe scan;
+the padded path on the same index without the multi-row layout (K2
+throughout, with the two-phase window held to single phase on a strict
+window whose stragglers take phase B, and time_search at batch 1); each
+kernel against its plain version on the index's own arrays, K2 at the
+shapes the main path gives it (the window's waves, a training chunk, batch
+1 and one list probed by every query). Every path is driven through the
+port's public entry points on their default device, with the kernels'
+launch counts set to 0 just before it and read just after. Exits non-zero
+when there is no CUDA device or any phase fails. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel.
 
     python3 chip_smoke.py [--profile DIR]
 
 ``--profile DIR`` also writes torch.profiler tables of one batched and one
-batch-1 search on each path, and of one two-phase and one single-phase run
-of the phase-B window.
+batch-1 search on each path, of the 0.9 and the strict window through the
+one-shot and the wave engine, and of one two-phase and one single-phase
+run of the phase-B window.
 
     python3 chip_smoke.py --kernels
 
@@ -127,8 +141,11 @@ def k2_work(db, db_sq, vec_ids, list_sizes, q, q_sq, lists) -> dict:
 
 
 # (name, n_rows, row_cap, d, T): the multirow scan's shape at the
-# benchmark configuration, a ragged worklist, and the scalar-load path
+# benchmark configuration, the one-shot engine's tail round (a sub-batch of
+# 256 queries at the first geometric width, 64 row slots), a ragged
+# worklist, and the scalar-load path
 K1_SHAPES = (("bench", 4608, 256, 128, 4096),
+             ("tail", 4608, 256, 128, 256 * 64),
              ("ragged", 4608, 256, 128, 4093),
              ("scalar", 64, 200, 100, 77))
 # (name, nlist, cap, d, B, n_slots): a padded layout with the benchmark's d,
@@ -164,10 +181,11 @@ def k1_check(device, card: str) -> dict:
         log(f"[k1] {name}: T={T} row_cap={row_cap} d={d} max_abs_err="
             f"{err:.3g} kernel {t_k:.4f} ms ({gb / t_k * 1e3:.1f} GB/s) "
             f"plain {t_ref:.4f} ms ({gb / t_ref * 1e3:.1f} GB/s) [{card}]")
-        if name == "bench":
+        if name in ("bench", "tail"):
             b_ms, b_by = k1_bound(db, rows, qs)
             log(f"[k1] {name}: bound {b_ms:.4f} ms ({b_by}; distinct rows "
                 f"read once), {100 * b_ms / t_k:.1f} % of it [{card}]")
+        if name == "bench":
             result = {"max_abs_err": err, "ms": t_k, "plain_ms": t_ref,
                       "bound_ms": b_ms, "bound_by": b_by}
         del db, rows, qs, got, want
@@ -426,10 +444,21 @@ def multirow_path(c: dict, card: str, profile_dir: str | None) -> dict:
     mult, times["calibrate"] = synced(
         lambda: es.calibrate(0, N_TRAIN_Q, target_bound=1.0 - EPS,
                              std_m_grid=STD_M_GRID))
-    log(f"[calibrate] multipler={mult:.3f} std_m={es.std_m}")
+    route = ("the whole window dense"
+             if es._mr_oneshot_plan(N_TEST_Q).dense_cut_rows == 0
+             else "per-query crossover")
+    log(f"[calibrate] multipler={mult:.3f} std_m={es.std_m} _cal_mean_scan="
+        f"{es._cal_mean_scan:.3f} _dense_min_bsz={es._dense_min_bsz}: a "
+        f"{N_TEST_Q}-query window takes the one-shot engine, {route}")
     window = serve_window(es, gt_D, card, "search")
     times["search"] = window["seconds"]
     lat = serve_batch1(es, N_LATENCY, card, "latency")
+    gather = oneshot_phase(es, gt_D, card, profile_dir)
+    strict_phase(es, card, profile_dir)
+    dense_decide_phase(es, gt_D, gather["n_scanned"], card)
+    profile_mode_phase(es, card)
+    stream_phase(es, card)
+    time_mode_phase(es, card)
     launches = launch_counts()
     log("[stages] " + " ".join(f"{k}={v:.2f}s" for k, v in times.items())
         + f" [{card}]")
@@ -472,6 +501,7 @@ def padded_path(c: dict, card: str, profile_dir: str | None) -> dict:
     times["search"] = window["seconds"]
     lat = serve_batch1(es, N_LATENCY_PADDED, card, "padded latency")
     phase_b(es, gt_D, card, profile_dir)
+    padded_time_mode(es, card)
     launches = launch_counts()
     log("[padded stages] " + " ".join(f"{k}={v:.2f}s"
                                       for k, v in times.items())
@@ -526,8 +556,9 @@ def phase_b(es, gt_D, card: str, profile_dir: str | None = None) -> dict:
     margin = es._decide_margin_flag()
 
     def single():
-        vals, ids, _, ns = bounded_search(
-            idx.arrays, es.traces, q, acc_t, m, sm, K, MAX_TOPK, idx.metric,
+        vals, ids, _, ns, _ = bounded_search(
+            idx.arrays, es.traces, q, acc_t, m, sm,
+            torch.zeros(N_TEST_Q, device=dev), K, MAX_TOPK, idx.metric,
             decide_margin=margin)
         return (vals[:, :K].cpu().numpy(), ids[:, :K].cpu().numpy(),
                 ns.cpu().numpy())
@@ -561,6 +592,328 @@ def phase_b(es, gt_D, card: str, profile_dir: str | None = None) -> dict:
     es.set_queries(es.num, es.queries, saved[0])
     es.multipler = saved[1]
     return {"two_ms": ms_two, "single_ms": ms_one, "stragglers": stragglers}
+
+
+def held_out() -> slice:
+    return slice(N_TRAIN_Q, N_TRAIN_Q + N_TEST_Q)
+
+
+def in_turns(a, b, turns: int) -> tuple:
+    """Median ms of a and of b over calls in turns a, b, b, a, and the
+    times themselves."""
+    ta, tb = [], []
+    for _ in range(turns):
+        ta.append(synced(a)[1])
+        tb.append(synced(b)[1])
+        tb.append(synced(b)[1])
+        ta.append(synced(a)[1])
+    return (float(np.median(ta)) * 1e3, float(np.median(tb)) * 1e3,
+            " ".join(f"{t * 1e3:.2f}" for t in ta),
+            " ".join(f"{t * 1e3:.2f}" for t in tb))
+
+
+def oneshot_route(es):
+    """The held-out window through es.search: (D, I, n_scanned)."""
+    D, I = es.search(N_TRAIN_Q, N_TEST_Q)
+    return D, I, es.n_scanned[held_out()].copy()
+
+
+def wave_route(es):
+    """The held-out window through the single-phase wave engine under
+    ``plan_mr_waves`` (the port's route for such windows before the
+    one-shot engine), at es's bounds and hyperparameters."""
+    from auncel_tpu_torch.profile.bounded_mr import (
+        bounded_search_mr, plan_mr_waves)
+    idx = es.index
+    dev = idx.device
+    mr = idx.multirow
+    plan = plan_mr_waves(mr.rows_per_list.cpu().numpy(), idx.nlist,
+                         decide_only=False)
+    q = torch.as_tensor(es.queries[held_out()], device=dev)
+    acc = torch.as_tensor(es.require_acc[held_out()], device=dev)
+    m = torch.tensor(es.multipler, dtype=torch.float32, device=dev)
+    sm = torch.tensor(es.std_m, dtype=torch.float32, device=dev)
+    z = torch.zeros(N_TEST_Q, dtype=torch.float32, device=dev)
+    margin = es._decide_margin_flag()
+
+    def run():
+        vals, ids, _, ns, _ = bounded_search_mr(
+            idx.arrays, mr, es.traces, q, acc, m, sm, z, K, MAX_TOPK,
+            idx.metric, plan, False, margin)
+        return (vals[:, :K].cpu().numpy(), ids[:, :K].cpu().numpy(),
+                ns.cpu().numpy())
+    return run
+
+
+def differ(a, b) -> tuple:
+    """(queries whose ids differ, n_scanned that differ, max |D| diff)."""
+    return (int((a[1] != b[1]).any(axis=1).sum()), int((a[2] != b[2]).sum()),
+            float(np.abs(a[0] - b[0]).max()))
+
+
+def oneshot_phase(es, gt_D, card: str, profile_dir: str | None) -> dict:
+    """[oneshot]: the 0.9 window through es.search (the one-shot engine,
+    gather route) against the wave engine: equal ids, n_scanned and
+    distances (both scan with K1, whose dots do not depend on the batch),
+    each timed in turns."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.autotune import recall_counts
+    saved = es.dense_auto
+    es.dense_auto = False   # per-query routing: every 0.9 budget gathers
+    one, n1 = counted(lambda: oneshot_route(es))
+    wave = wave_route(es)
+    two, n2 = counted(wave)
+    bad = differ(one, two)
+    ms_one, ms_wave, t_one, t_wave = in_turns(lambda: oneshot_route(es),
+                                              wave, 3)
+    cnt = recall_counts(one[0], gt_D[held_out()], K, Metric.L2)
+    log(f"[oneshot] bound 0.9, multipler {es.multipler:.3f}: worst "
+        f"recall@{K} {cnt.min() / K:.3f} mean n_scanned {one[2].mean():.2f} "
+        f"max {one[2].max()}; one-shot {ms_one:.2f} ms ({t_one}), wave "
+        f"engine {ms_wave:.2f} ms ({t_wave}); launches one-shot {n1}, wave "
+        f"{n2}; queries whose ids differ {bad[0]}, n_scanned differ {bad[1]},"
+        f" max |D| diff {bad[2]:.3g} [{card}]")
+    check(bad == (0, 0, 0.0), "one-shot and wave engine differ at 0.9")
+    check(cnt.min() >= K * (1.0 - EPS), "one-shot window misses the bound")
+    if profile_dir:
+        profile_call(lambda: oneshot_route(es), profile_dir, card,
+                     "oneshot window")
+        profile_call(wave, profile_dir, card, "wave window")
+    es.dense_auto = saved
+    return {"oneshot_ms": ms_one, "wave_ms": ms_wave, "n_scanned": one[2]}
+
+
+def result_norms(idx) -> torch.Tensor:
+    """Stored squared norm of every vector, by id."""
+    a = idx.arrays
+    live = a.vec_ids >= 0
+    norms = torch.zeros(idx.ntotal, dtype=torch.float32, device=idx.device)
+    norms[a.vec_ids[live].long()] = a.db_sq[live]
+    return norms
+
+
+def strict_phase(es, card: str, profile_dir: str | None) -> dict:
+    """[oneshot strict]: the held-out queries at bound 1.0, the multipler
+    doubled until some budget passes nlist/8. One-shot (gather route)
+    against the wave engine: equal results. Then the default per-query
+    crossover (budgets over dense_cut of the rows dense) and every query
+    dense, against gather: equal n_scanned, distances within 1e-5 of
+    q_sq + db_sq, ids differing only where the two distances lie within
+    that tolerance."""
+    idx = es.index
+    nlist = idx.nlist
+    saved = (es.require_acc, es.multipler, es.dense_cut, es.dense_auto)
+    es.set_queries(es.num, es.queries,
+                   np.full(N_TRAIN_Q + N_TEST_Q, 1.0, np.float32))
+    es.dense_cut, es.dense_auto = None, False   # gather only
+    while True:
+        one, n1 = counted(lambda: oneshot_route(es))
+        stragglers = int((one[2] > nlist // 8).sum())
+        if stragglers or es.multipler >= 64.0:
+            break
+        es.multipler = min(es.multipler * 2.0, 64.0)
+    check(stragglers > 0, "no query of the strict window passed nlist/8")
+    wave = wave_route(es)
+    two, n2 = counted(wave)
+    bad = differ(one, two)
+    ms_one, ms_wave, t_one, t_wave = in_turns(lambda: oneshot_route(es),
+                                              wave, 2)
+    log(f"[oneshot strict] bound 1.0 at multipler {es.multipler:.3f}: "
+        f"{stragglers} of {N_TEST_Q} queries past nlist/8, mean n_scanned "
+        f"{one[2].mean():.2f} max {one[2].max()}; one-shot (gather) "
+        f"{ms_one:.2f} ms ({t_one}), wave engine {ms_wave:.2f} ms ({t_wave});"
+        f" launches one-shot {n1}, wave {n2}; queries whose ids differ "
+        f"{bad[0]}, n_scanned differ {bad[1]}, max |D| diff {bad[2]:.3g} "
+        f"[{card}]")
+    check(bad == (0, 0, 0.0), "one-shot and wave engine differ at 1.0")
+    if profile_dir:
+        profile_call(lambda: oneshot_route(es), profile_dir, card,
+                     "strict oneshot")
+        profile_call(wave, profile_dir, card, "strict wave")
+    q = torch.as_tensor(es.queries[held_out()], device=idx.device)
+    q_sq = (q * q).sum(1).cpu().numpy()
+    norms = result_norms(idx)
+    out = {"gather_ms": ms_one, "wave_ms": ms_wave,
+           "stragglers": stragglers}
+    def routed(cut):
+        def run():
+            es.dense_cut = cut
+            return oneshot_route(es)
+        return run
+
+    for label, cut in (("crossover 0.25", 0.25), ("all dense", 0.0)):
+        dense, nd = counted(routed(cut))
+        ms_d, ms_g, t_d, t_g = in_turns(routed(cut), routed(None), 2)
+        terms = q_sq[:, None] + np.maximum(
+            norms[torch.as_tensor(one[1], device=idx.device)].cpu().numpy(),
+            norms[torch.as_tensor(dense[1], device=idx.device)].cpu().numpy())
+        diff = np.abs(dense[0] - one[0])
+        within = bool((diff <= 1e-5 * terms).all())
+        ids_differ = int((dense[1] != one[1]).sum())
+        log(f"[oneshot strict] {label}: {ms_d:.2f} ms ({t_d}) against "
+            f"gather {ms_g:.2f} ms ({t_g}); launches {nd}; n_scanned differ "
+            f"{int((dense[2] != one[2]).sum())}; max |D| diff "
+            f"{diff.max():.3g} (largest 1e-5 (q_sq + db_sq) "
+            f"{1e-5 * terms.max():.3g}); id positions that differ "
+            f"{ids_differ} [{card}]")
+        check(np.array_equal(dense[2], one[2]), f"{label}: n_scanned differ")
+        check(within, f"{label}: distances beyond 1e-5 of q_sq + db_sq")
+        out[label] = ms_d
+    es.set_queries(es.num, es.queries, saved[0])
+    es.multipler, es.dense_cut, es.dense_auto = saved[1:]
+    return out
+
+
+def dense_decide_phase(es, gt_D, gather_ns, card: str) -> None:
+    """[dense decide]: the 0.9 window with the decision ladder replayed
+    from one shared corpus pass, against the gather decisions."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.autotune import recall_counts
+    saved = es.dense_auto
+    es.dense_auto, es.dense_decide = False, True
+    (D, _, ns), n = counted(lambda: oneshot_route(es))
+    ms = float(np.median([synced(lambda: oneshot_route(es))[1]
+                          for _ in range(3)])) * 1e3
+    es.dense_decide, es.dense_auto = False, saved
+    cnt = recall_counts(D, gt_D[held_out()], K, Metric.L2)
+    log(f"[dense decide] bound 0.9: {int((ns != gather_ns).sum())} of "
+        f"{N_TEST_Q} decisions differ from the gather route; worst recall@"
+        f"{K} {cnt.min() / K:.3f}; mean n_scanned {ns.mean():.2f}; {ms:.2f} "
+        f"ms median of 3; launches {n} [{card}]")
+    check(cnt.min() >= K * (1.0 - EPS), "dense decide misses the bound")
+
+
+def profile_mode_phase(es, card: str) -> None:
+    """[profile mode]: t_recalls of the 0.9 window."""
+    es.profile = True
+    es.search(N_TRAIN_Q, N_TEST_Q)
+    es.profile = False
+    t = es.t_recalls[held_out()]
+    log(f"[profile mode] t_recalls over {N_TEST_Q} queries: mean "
+        f"{t.mean():.4f} min {t.min():.3f} [{card}]")
+    check(t.mean() >= 1.0 - EPS, "profile mode: mean t_recall below 0.9")
+
+
+def stream_phase(es, card: str) -> None:
+    """[stream]: search_stream over windows of 256 against search over the
+    same windows, bookkeeping included."""
+    w = 256
+    (D, I), n = counted(lambda: es.search_stream(N_TRAIN_Q, N_TEST_Q,
+                                                 window=w))
+    ns = es.n_scanned[held_out()].copy()
+    outs = [es.search(N_TRAIN_Q + o, min(w, N_TEST_Q - o))
+            for o in range(0, N_TEST_Q, w)]
+    same = (np.array_equal(D, np.concatenate([o[0] for o in outs]))
+            and np.array_equal(I, np.concatenate([o[1] for o in outs]))
+            and np.array_equal(ns, es.n_scanned[held_out()]))
+    log(f"[stream] search_stream over windows of {w}: equal to search over "
+        f"the same windows {same}; launches {n} [{card}]")
+    check(same, "search_stream differs from search")
+
+
+def time_mode_phase(es, card: str) -> dict:
+    """[time mode]: calibrate_time on the card, then time_search at batch 1
+    over 200 held-out queries with budgets spread over the table's range:
+    each spends exactly _budget_to_probes(budget). Reports, with no
+    threshold, the share of calls within budget (wall time, and wall time
+    less the dispatch floor, as the JAX package's effect_time) and the
+    correlation of the model's cost with the measured one. Then
+    nprobe_search_mr at a fixed nprobe against multirow_search_fixed."""
+    from auncel_tpu_torch.index.multirow import multirow_search_fixed
+    from auncel_tpu_torch.profile.bounded_mr import nprobe_search_mr
+    idx = es.index
+    nlist = idx.nlist
+    saved = es.require_acc
+    n_q = 200
+    (slope, dt), n_cal = counted(lambda: synced(es.calibrate_time))
+    tbl = es._time_cost_table
+    grid = [1]
+    while grid[-1] < nlist:
+        grid.append(grid[-1] * 2)
+    log(f"[time mode] calibrate_time {dt:.2f} s, launches {n_cal}: cost "
+        + " ".join(f"{g}:{tbl[g - 1]:.3f}" for g in grid)
+        + f" ms; per_probe_ms {slope:.5f} [{card}]")
+    lo = max(float(tbl[tbl > 0].min()) if (tbl > 0).any() else 0.01, 0.01)
+    budgets = np.geomspace(lo, max(float(tbl[-1]), lo * 2), n_q) / 0.95
+    acc = np.full(N_TRAIN_Q + N_TEST_Q, 1e-6, np.float32)
+    acc[N_TRAIN_Q:N_TRAIN_Q + n_q] = budgets
+    es.set_queries(es.num, es.queries, acc)
+    es.time_search(N_TRAIN_Q + n_q - 1, 1)   # warm
+    wall = np.zeros(n_q)
+    launches = {}
+    for i in range(n_q):
+        (_, t), n = counted(lambda: synced(
+            lambda: es.time_search(N_TRAIN_Q + i, 1)))
+        wall[i] = t * 1e3
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    spent = es.n_scanned[N_TRAIN_Q:N_TRAIN_Q + n_q].copy()
+    want = es._budget_to_probes(acc[N_TRAIN_Q:N_TRAIN_Q + n_q])
+    # the dispatch floor: the same call at the least work (one probe)
+    floor = float(np.median([synced(lambda: es.time_search(
+        N_TRAIN_Q + n_q + j, 1))[1] for j in range(8)])) * 1e3
+    dev_ms = np.maximum(wall - floor, 0.0)
+    model = es.time_cost_ms(spent)
+    b = acc[N_TRAIN_Q:N_TRAIN_Q + n_q]
+    corr = float(np.corrcoef(model, dev_ms)[0, 1]) \
+        if model.std() > 0 and dev_ms.std() > 0 else float("nan")
+    log(f"[time mode] time_search at batch 1 over {n_q} queries, budgets "
+        f"{b.min():.3f}-{b.max():.3f} ms: probes {spent.min()}-{spent.max()}"
+        f", equal to _budget_to_probes {np.array_equal(spent, want)}; "
+        f"within budget: wall {np.mean(wall <= b):.3f}, wall less the "
+        f"{floor:.2f} ms floor {np.mean(dev_ms <= b):.3f}; corr(model, "
+        f"measured less floor) {corr:.3f}; wall p50 "
+        f"{np.percentile(wall, 50):.2f} ms max {wall.max():.2f} ms; "
+        f"launches {launches} [{card}]")
+    check(np.array_equal(spent, want), "time_search spent other counts")
+    check(launches.get("rowscan_dots", 0) > 0, "time_search never "
+          "launched K1")
+    es.set_queries(es.num, es.queries, saved)
+    # a fixed nprobe: the tail rounds against the fixed-nprobe scan
+    nprobe = 16
+    q = torch.as_tensor(es.queries[held_out()], device=idx.device)
+    _, ids, _ = nprobe_search_mr(
+        idx.arrays, idx.multirow, q, torch.full((N_TEST_Q,), nprobe,
+                                                device=idx.device),
+        MAX_TOPK, idx.metric, es._mr_oneshot_plan())
+    rpl = np.sort(idx.multirow.rows_per_list.cpu().numpy())[::-1]
+    _, fids = multirow_search_fixed(idx.multirow, q, K, nprobe,
+                                    int(rpl[:nprobe].sum()), idx.metric)
+    same = torch.equal(ids[:, :K], fids)
+    log(f"[time mode] nprobe_search_mr at nprobe {nprobe} equals "
+        f"multirow_search_fixed on ids: {same} [{card}]")
+    check(same, "nprobe_search_mr differs from multirow_search_fixed")
+    return {"per_probe_ms": slope, "within_wall": float(np.mean(wall <= b)),
+            "corr": corr}
+
+
+def padded_time_mode(es, card: str) -> None:
+    """time_search on 100 batch-1 queries of the padded path under a
+    linear per_probe_ms: counts ceil(0.95 b / t - 1) in float32, K2."""
+    saved = (es.require_acc, es.per_probe_ms, es._time_cost_table)
+    n_q, per_probe = 100, 0.05
+    es.per_probe_ms, es._time_cost_table = per_probe, None
+    budgets = np.linspace(0.05, 10.0, n_q).astype(np.float32)
+    acc = np.full(N_TRAIN_Q + N_TEST_Q, 1.0, np.float32)
+    acc[N_TRAIN_Q:N_TRAIN_Q + n_q] = budgets
+    es.set_queries(es.num, es.queries, acc)
+    launches = {}
+    for i in range(n_q):
+        _, n = counted(lambda: es.time_search(N_TRAIN_Q + i, 1))
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    spent = es.n_scanned[N_TRAIN_Q:N_TRAIN_Q + n_q]
+    want = np.clip(np.ceil(np.float32(0.95) * budgets / np.float32(per_probe)
+                           - np.float32(1.0)), 1, es.index.nlist)
+    log(f"[padded time mode] time_search at batch 1 over {n_q} queries, "
+        f"per_probe_ms {per_probe}: probes {spent.min()}-{spent.max()}, "
+        f"equal to the float32 conversion {np.array_equal(spent, want)}; "
+        f"launches {launches} [{card}]")
+    check(np.array_equal(spent, want), "padded time_search counts")
+    check(launches.get("scan_scores", 0) > 0, "padded time_search never "
+          "launched K2")
+    es.set_queries(es.num, es.queries, saved[0])
+    es.per_probe_ms, es._time_cost_table = saved[1:]
 
 
 def kernels_on_index(c: dict, device, card: str) -> dict:

@@ -42,14 +42,14 @@ def _run_both(plan_name, q, acc, multipler, std_m):
     got = tbm.bounded_search_mr(
         arrays, mr, traces, torch.from_numpy(q), torch.from_numpy(acc),
         torch.tensor(multipler, dtype=torch.float32),
-        torch.tensor(std_m, dtype=torch.float32), K, MAX_TOPK, Metric.L2,
-        tplan, decide_margin=True)
+        torch.tensor(std_m, dtype=torch.float32), torch.zeros(B), K,
+        MAX_TOPK, Metric.L2, tplan, decide_margin=True)
     want = jbm.bounded_search_mr(
         f["idx"].arrays, f["idx"].multirow, f["es"].traces, jnp.asarray(q),
         jnp.asarray(acc), jnp.float32(multipler), jnp.float32(std_m),
         jnp.zeros(B, jnp.float32), K, MAX_TOPK, JMetric.L2, jplan,
         decide_margin=True)
-    return [tnp(x) for x in got], [np.asarray(x) for x in want[:4]]
+    return [tnp(x) for x in got[:4]], [np.asarray(x) for x in want[:4]]
 
 
 @pytest.mark.parametrize("plan_name", ["waves", "latency"])

@@ -58,8 +58,8 @@ def test_bounded_search_matches_jax(margin):
     q, acc = _window()
     got = [tnp(x) for x in tb.bounded_search(
         arrays, traces, torch.from_numpy(q), torch.from_numpy(acc),
-        _f32(2.0), _f32(1.0), K, MAX_TOPK, Metric.L2,
-        decide_margin=margin)]
+        _f32(2.0), _f32(1.0), torch.zeros(WINDOW), K, MAX_TOPK, Metric.L2,
+        decide_margin=margin)[:4]]
     for b in range(WINDOW):
         want = jb.bounded_search(
             f["idx"].arrays, f["es"].traces, jnp.asarray(q[b:b + 1]),
@@ -117,8 +117,9 @@ def test_two_phase_equals_single_phase(margin):
     q, acc = torch.from_numpy(q), torch.from_numpy(acc)
     m, s = _f32(MULTIPLER), _f32(1.0)
     two = es._two_phase(q, acc, m, s, margin)
-    one = tb.bounded_search(es.index.arrays, es.traces, q, acc, m, s, K,
-                            MAX_TOPK, Metric.L2, decide_margin=margin)
+    one = tb.bounded_search(es.index.arrays, es.traces, q, acc, m, s,
+                            torch.zeros(WINDOW), K, MAX_TOPK, Metric.L2,
+                            decide_margin=margin)[:4]
     assert (tnp(two[3]) > NLIST // 8).any()   # phase B ran
     for got, want in zip(two, one):
         np.testing.assert_array_equal(tnp(got), tnp(want))
