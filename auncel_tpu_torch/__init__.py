@@ -8,8 +8,9 @@ imports torch and never jax.
 Main path: ``IVFFlatIndex.train``/``add``/``enable_multirow``, ground truth
 from ``exact_search``, ``ErrorSys.sys_train``/``set_topk``/``set_queries``/
 ``calibrate``, then ``ErrorSys.search`` with a recall bound per query. The
-scan's dot runs in the hand-written CUDA kernel ``kernels/rowscan.py`` on a
-CUDA device and in its plain PyTorch version on the CPU.
+scan of the rows (dots, scores and masks) runs in the hand-written CUDA
+kernel of ``kernels/rowscan.py`` on a CUDA device and in its plain PyTorch
+version on the CPU.
 """
 
 from auncel_tpu_torch.types import Metric

@@ -1,36 +1,277 @@
-// Worklist row-scan for Hopper (sm_90a):
+// K1, the row scan of the multi-row layout, for Hopper (sm_90a). Two
+// kernels replace the Pallas TPU kernel
+// auncel_tpu/pallas_kernels/rowscan.py::rowscan_dots:
 //
-//     dots[t, c] = <db[work_rows[t], c, :], qs[t, :]>
+// rowscan_scores, the main path's: for every query b, row slot s and slot c
+// of row r = rows[b, s],
 //
-// for every worklist entry t (one (query, row) pair) and every slot c of the
-// row. Replaces the Pallas TPU kernel
-// auncel_tpu/pallas_kernels/rowscan.py::rowscan_dots with the same contract,
-// minus its T % 16 requirement: any T >= 0 is valid. The caller assembles
-// L2 scores as q_sq + db_sq - 2 * dots from the STORED db_sq.
+//     scores[b, s * row_cap + c] = max((q_sq[b] + db_sq[r, c]) - 2 * dot, 0)
+//                                  (L2), or dot (IP)
+//     ids[b, s * row_cap + c]    = vec_ids[r, c]
 //
-// What bounds it: device-memory bandwidth. Each entry reads one whole
-// [row_cap, d] f32 row block (T * row_cap * d * 4 bytes in all) and does one
-// FMA per 4 bytes read, far below the card's operations-per-byte balance.
-// The design therefore only tries to keep enough loads in flight:
-//   * one block per (entry, tile of kSlotsPerBlock row slots); the entry's
-//     query row is staged once in shared memory;
-//   * each warp owns kSlotsPerWarp slots of the tile and reads each slot's d
-//     floats as coalesced 16-byte loads (float4, lane i reads elements
-//     4i..4i+3, then 4(i+32)..), with all kSlotsPerWarp loads in flight
-//     before any of them is reduced; scalar loads when d % 4 != 0 or a base
-//     pointer is not 16-byte aligned;
-//   * fp32 FMA accumulation and a warp-shuffle reduction.
-// No tensor cores, TMA or fusion: gathering rows with TMA, fusing the score
-// assembly, masks and top-k, and SQ8 decode are later work.
+// with dot = <db[r, c, :], q[b, :]>. A slot is dead, with the metric's worst
+// value and id -1, when r < 0 (an inactive entry: a row slot past the
+// query's limit), c >= row_sizes[r] or vec_ids[r, c] < 0; row ids >= n_rows
+// clamp. This is K2's contract (csrc/scan_scores.cu) with rows for lists:
+// the TPU kernel's dots fused with the score assembly and masks that its
+// caller ran as separate passes (auncel_tpu/index/scan.py:249-268).
 //
-// Out-of-range row ids are clamped to [0, n_rows), as XLA clamps a gather.
+// What bounds it: device-memory bandwidth. The least traffic is each
+// distinct live row's live slots read once and 8 bytes (score and id)
+// written for every output slot. The TPU kernel's schedule, one program per
+// (query, row) entry, reads a row once for every query that probes it, and
+// the TPU route computes masked entries too. So this design is row-grouped
+// and limit-aware:
+//   * inactive entries read nothing; fill units write their worst values
+//     and -1, and those of the slots past row_sizes;
+//   * the live entries are grouped by row on the device (worklist.cuh: a
+//     histogram, a one-block scan and a scatter into a CSR, no host sync),
+//     and an item is (row, chunk of up to 32 of its entries). A persistent
+//     grid takes the items from an atomic counter; the chunks of one row
+//     are neighbours, so a row leaves device memory once and its other
+//     chunks find it in L2. Up to one chunk of entries skips the worklist
+//     (direct mode: each block groups the entries itself and takes two
+//     tiles of one row), so batch 1 costs a single launch;
+//   * the Tensor Memory Accelerator loads the rows: one elected thread
+//     copies each 64-slot tile of the item's live slots (32 KB at d = 128,
+//     contiguous) with one cp.async.bulk into a two-stage shared-memory ring,
+//     completing on the stage's mbarrier; a stage is refilled as soon as its
+//     dots are taken, so two tiles' copies run under one tile's epilogue and
+//     the next tile's dots. Slots past row_sizes are never copied. When d %
+//     4 != 0 or a base is not 16-byte aligned, 4-byte cp.async copies fill
+//     the same ring and arrive on the same mbarriers;
+//   * the queries are staged with plain loads, and each lane reads its two
+//     slots' norms and ids into registers while the tile lands;
+//   * fp32 FMA, no tensor cores, in K2's dot units (worklist.cuh), so a
+//     slot's dot is rounded exactly as K2 rounds it; each (b, s) row
+//     segment of a tile is written as one coalesced run of scores and ids.
+//
+// rowscan_dots, the first, query-major port, off the main path: the TPU
+// kernel's own contract, dots[t, c] = <db[work_rows[t], c, :], qs[t, :]>
+// over a flat worklist (any T >= 0), row ids clamped. One block per
+// (entry, tile of 64 slots): each warp owns 8 slots of the tile and reads
+// each slot's d floats as coalesced 16-byte loads with all 8 loads in
+// flight before any is reduced (scalar loads when d % 4 != 0 or a base is
+// not 16-byte aligned), fp32 FMA and a warp-shuffle reduction. It reads a
+// row for every entry.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include "worklist.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+// ---- rowscan_scores
+
+// ring (TMA's destination, 128-byte aligned after the barriers), queries,
+// dots, q_sq and entries
+constexpr size_t kBarBytes = 128;
+
+Config row_config(int n_rows, int row_cap, int d, long long n_work) {
+  Config c = make_config(n_rows, row_cap, d, n_work, 0);  // a row an item
+  c.smem = kBarBytes + 4 * ((size_t)kStages * c.tile * d +
+                            (size_t)c.chunk * d + (size_t)c.chunk * c.tile +
+                            2 * c.chunk);
+  return c;
+}
+
+struct RowSmem {
+  uint64_t* full;  // [kStages] mbarriers: the stage's copy has landed
+  float* ring;     // [kStages][tile][d]
+  float* qs;       // [chunk][d]
+  float* dots;     // [chunk][tile]
+  float* qsq;      // [chunk]
+  int* rows;       // [chunk] entries b * n_slots + s
+};
+
+__device__ __forceinline__ RowSmem carve_rows(const Params& p,
+                                              unsigned char* base) {
+  RowSmem s;
+  s.full = reinterpret_cast<uint64_t*>(base);
+  s.ring = reinterpret_cast<float*>(base + kBarBytes);
+  s.qs = s.ring + kStages * p.tile * p.d;
+  s.dots = s.qs + p.chunk * p.d;
+  s.qsq = s.dots + p.chunk * p.tile;
+  s.rows = reinterpret_cast<int*>(s.qsq + p.chunk);
+  return s;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) that completes on `bar`, which this call arms for those bytes.
+__device__ __forceinline__ void tma_load(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  // the stage's earlier reads (generic proxy) before the copy's writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Scores and ids of row r's live slots [c_begin, c_end) for nq entries
+// (ents: b * n_slots + s), each slot read from device memory once.
+// `phases` holds the parity of each stage's next completion.
+template <bool kTma>
+__device__ void scan_row(const Params& p, const RowSmem& s, int r,
+                         int c_begin, int c_end, int nq, const int* ents,
+                         unsigned& phases) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float worst = p.is_l2 ? CUDART_INF_F : -CUDART_INF_F;
+  const long long row_off = (long long)r * p.cap;
+  const int d = p.d;
+  const int n_tiles = (c_end - c_begin + p.tile - 1) / p.tile;
+  auto issue = [&](int t) {
+    const int c0 = c_begin + t * p.tile;
+    const int n = min(p.tile, c_end - c0);
+    float* dst = s.ring + (t % kStages) * p.tile * d;
+    const float* src = p.db + (row_off + c0) * d;
+    uint64_t* bar = s.full + t % kStages;
+    if (kTma) {
+      if (threadIdx.x == 0) tma_load(dst, src, (unsigned)(n * d * 4), bar);
+    } else {
+      for (int i = threadIdx.x; i < n * d; i += kThreads)
+        cp_async4(dst + i, src + i);
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                       "r"(smem_addr(bar))
+                   : "memory");
+    }
+  };
+  // Two tiles in flight: tile t + 2's copy starts as soon as tile t's dots
+  // are taken, under tile t's epilogue and tile t + 1's dots.
+  issue(0);
+  if (n_tiles > 1) issue(1);
+  if (threadIdx.x < nq) {
+    const int e = ents[threadIdx.x];
+    s.rows[threadIdx.x] = e;
+    s.qsq[threadIdx.x] = p.q_sq[e / p.n_slots];
+  }
+  __syncthreads();
+  for (int k = warp; k < nq; k += kWarps) {
+    const float* src = p.q + (long long)(s.rows[k] / p.n_slots) * d;
+    float* dst = s.qs + k * d;
+    if (kTma) {
+      for (int i = lane; i < (d >> 2); i += 32)
+        reinterpret_cast<float4*>(dst)[i] =
+            __ldg(reinterpret_cast<const float4*>(src) + i);
+    } else {
+      for (int i = lane; i < d; i += 32) dst[i] = __ldg(src + i);
+    }
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c0 = c_begin + t * p.tile;
+    const int n_live = min(p.tile, c_end - c0);
+    // the norms and ids of this lane's slots (lane and lane + 32; a tile
+    // has at most 64), read while the tile lands
+    float sq[2];
+    int vid[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = lane + 32 * j;
+      const bool ok = c < n_live;
+      sq[j] = ok ? __ldg(p.db_sq + row_off + c0 + c) : 0.f;
+      vid[j] = ok ? __ldg(p.vec_ids + row_off + c0 + c) : -1;
+    }
+    const int st = t % kStages;
+    mbar_wait(s.full + st, (phases >> st) & 1u);
+    phases ^= 1u << st;
+    __syncthreads();  // the staged queries; the last tile's epilogue is done
+
+    tile_dots<kTma>(p, s.qs, s.dots, s.ring + st * p.tile * d, n_live, nq);
+    __syncthreads();
+    if (t + 2 < n_tiles) issue(t + 2);
+
+    // epilogue: one coalesced run of the tile per (b, s) row
+    for (int k = warp; k < nq; k += kWarps) {
+      const long long base = (long long)s.rows[k] * p.cap + c0;
+      const float q_sq = s.qsq[k];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = lane + 32 * j;
+        if (c >= n_live) continue;
+        const int id = vid[j];
+        float score = worst;
+        if (id >= 0) {
+          const float dot = s.dots[k * p.tile + c];
+          // (q_sq + db_sq) - 2 * dot, rounded step by step as the plain
+          // version does; 2 * dot is exact, so no contraction can change it
+          score = p.is_l2
+                      ? fmaxf(__fsub_rn(__fadd_rn(q_sq, sq[j]), 2.0f * dot),
+                              0.0f)
+                      : dot;
+        }
+        p.scores[base + c] = score;
+        p.ids[base + c] = id >= 0 ? id : -1;
+      }
+    }
+  }
+  __syncthreads();  // the next item reuses the buffers
+}
+
+template <bool kTma>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rowscan_scores_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const RowSmem s = carve_rows(p, smem_raw);
+  if (threadIdx.x == 0) {
+    // TMA: the elected thread's arrive; cp.async: every thread's
+    for (int i = 0; i < kStages; ++i)
+      mbar_init(s.full + i, kTma ? 1 : kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  unsigned phases = 0;
+  run_units(p, [&](int r, int c_begin, int c_end, int nq, const int* ents) {
+    scan_row<kTma>(p, s, r, c_begin, c_end, nq, ents, phases);
+  });
+}
+
+template <bool kTma>
+cudaError_t launch_rows(const Params& p, const Config& c, int* scratch,
+                        int device, cudaStream_t stream) {
+  static int done_smem[64], occupancy[64];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  int per_sm = 0;
+  const cudaError_t err =
+      prepare((const void*)rowscan_scores_kernel<kTma>, c.smem,
+              done_smem[device], occupancy[device], &per_sm);
+  if (err != cudaSuccess) return err;
+  return launch_units(rowscan_scores_kernel<kTma>, per_sm, p, c, scratch,
+                      device, stream);
+}
+
+// ---- rowscan_dots
+
 constexpr int kSlotsPerWarp = 8;
 constexpr int kSlotsPerBlock = kWarps * kSlotsPerWarp;
 
@@ -111,8 +352,50 @@ rowscan_dots_kernel(const float* __restrict__ db,
 
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t) of device `device`. Returns
-// cudaGetLastError() after the launch: 0 on success. Does not synchronise.
+// Ints of device scratch that rowscan_scores_launch needs for these shapes
+// (0: none, the direct mode), or -1 when its shared memory or worklist
+// would not fit.
+extern "C" long long rowscan_scores_scratch_ints(int n_rows, int row_cap,
+                                                 int d, long long n_work) {
+  return checked_scratch_ints(row_config(n_rows, row_cap, d, n_work), n_rows,
+                              n_work);
+}
+
+// Enqueues the row scan on `stream` (a cudaStream_t) of device `device`:
+// n_work = B * n_slots (query, row slot) entries; `scratch` holds
+// rowscan_scores_scratch_ints(...) ints (may be null when that is 0).
+// Returns the first CUDA error of the enqueued launches
+// (cudaGetLastError()): 0 on success. Does not synchronise.
+extern "C" int rowscan_scores_launch(const float* db, const float* db_sq,
+                                     const int* vec_ids, const int* row_sizes,
+                                     const float* q, const float* q_sq,
+                                     const int* rows, float* scores, int* ids,
+                                     int* scratch, long long n_work,
+                                     int n_slots, int n_rows, int row_cap,
+                                     int d, int is_l2, int device,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_work <= 0 || row_cap <= 0) return 0;
+  if (rowscan_scores_scratch_ints(n_rows, row_cap, d, n_work) < 0)
+    return (int)cudaErrorInvalidValue;
+  const Config c = row_config(n_rows, row_cap, d, n_work);
+  if (!c.direct && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(db, db_sq, vec_ids, row_sizes, q, q_sq, rows,
+                               scores, ids, n_work, n_slots, n_rows, row_cap,
+                               d, is_l2, c);
+  // TMA's bulk copies take 16-byte aligned addresses and sizes
+  const bool tma = (d % 4 == 0) && ((uintptr_t)db % 16 == 0) &&
+                   ((uintptr_t)q % 16 == 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = tma ? launch_rows<true>(p, c, scratch, device, s)
+            : launch_rows<false>(p, c, scratch, device, s);
+  return (int)err;
+}
+
+// Launches rowscan_dots on `stream` (a cudaStream_t) of device `device`.
+// Returns cudaGetLastError() after the launch: 0 on success. Does not
+// synchronise.
 extern "C" int rowscan_dots_launch(const float* db, const int* work_rows,
                                    const float* qs, float* out,
                                    long long T, int n_rows, int row_cap,

@@ -5,14 +5,14 @@ probed lists, masks probe slots past each query's limit and dead slots, and
 merges the candidates into the exact running top-k. Two hand-written
 kernels score, chosen by the layout the caller holds:
 
-    padded lists (IVFArrays)          -> K2, kernels/scan_scores.py: scores
-                                         and ids of the live slots only
-    multi-row rows (RowArrays)        -> K1, kernels/rowscan.py: one fp32
-                                         dot per slot over a flat worklist,
-                                         scores assembled here
+    padded lists (IVFArrays)          -> K2, kernels/scan_scores.py
+    multi-row rows (RowArrays)        -> K1, kernels/rowscan.py
+                                         (rowscan_scores)
 
-Both use the STORED norms ``db_sq``, so every term but the dot is bitwise
-the JAX package's.
+Both take one contract: scores and ids of the live slots of each probed
+list (row), from the STORED norms ``db_sq``, so every term but the dot is
+bitwise the JAX package's; a probe slot past the query's limit is passed as
+list id -1 and read by neither.
 
 ``limit`` carries the per-query probe budget: probe slot ``ik`` contributes
 iff ``ik < limit[b]``, so a batch runs one shape while each query scans
@@ -34,7 +34,7 @@ import torch
 from auncel_tpu_torch.types import Metric, worst_value
 from auncel_tpu_torch.ops.distance import pairwise_scores, sqnorms
 from auncel_tpu_torch.ops.topk import init_topk, topk_scores
-from auncel_tpu_torch.kernels.rowscan import rowscan_dots
+from auncel_tpu_torch.kernels.rowscan import rowscan_scores
 from auncel_tpu_torch.kernels.scan_scores import scan_scores
 
 
@@ -97,26 +97,6 @@ def pick_probe_chunk(batch: int, cap: int, width: int) -> int:
     return max(1, min(width, CHUNK_SLOTS // max(batch * cap, 1)))
 
 
-def _row_scores(rows: RowArrays, q, q_sq, row_ids, in_limit, metric):
-    """K1 route: scores and ids [B, Cc * row_cap] of the probed rows."""
-    B, Cc = row_ids.shape
-    cap = rows.cap
-    row_ids = row_ids.clamp_min(0)
-    dots = rowscan_dots(rows.db, row_ids.reshape(-1).to(torch.int32),
-                        q.repeat_interleave(Cc, dim=0)).reshape(B, Cc, cap)
-    row_ids = row_ids.long()
-    sub_sq = rows.db_sq[row_ids]      # [B, Cc, cap]
-    sub_ids = rows.vec_ids[row_ids]   # [B, Cc, cap]
-    if metric is Metric.L2:
-        scores = (q_sq[:, None, None] + sub_sq - 2.0 * dots).clamp_min(0.0)
-    else:
-        scores = dots
-    active = in_limit[:, :, None] & (sub_ids >= 0)
-    scores = torch.where(active, scores, worst_value(metric))
-    sub_ids = torch.where(active, sub_ids, -1)
-    return scores.reshape(B, Cc * cap), sub_ids.reshape(B, Cc * cap)
-
-
 def scan_probe_range(
     arrays: IVFArrays,
     q: torch.Tensor,            # [B, d]
@@ -132,8 +112,8 @@ def scan_probe_range(
 ):
     """Scan probe slots [start, start + width) for every query; a per-query
     ``start`` lets each query advance its own frontier. Padded lists are
-    scored by K2, which reads nothing for a probe slot past the query's
-    limit (passed as list id -1); the rows of a ``RowArrays`` by K1."""
+    scored by K2 and the rows of a ``RowArrays`` by K1; neither reads a
+    probe slot past the query's limit (passed as list id -1)."""
     check_f32_storage(arrays)
     k = vals.shape[-1]
     B = q.shape[0]
@@ -151,15 +131,12 @@ def scan_probe_range(
                                                  device=dev)[None, :]
         safe_iks = iks.clamp(0, n_slots_avail - 1).long()
         lists = torch.gather(probe_lists, 1, safe_iks)   # [B, Cc]
-        in_limit = iks < limit[:, None]
-        if rows:
-            scores, sub_ids = _row_scores(arrays, q, q_sq, lists, in_limit,
-                                          metric)
-        else:
-            lists = torch.where(in_limit, lists, -1).to(torch.int32)
-            scores, sub_ids = scan_scores(
-                arrays.db, arrays.db_sq, arrays.vec_ids, arrays.list_sizes,
-                q, q_sq, lists, metric)
+        # a probe slot past its query's limit is list (row) -1: read by
+        # neither kernel
+        lists = torch.where(iks < limit[:, None], lists, -1).to(torch.int32)
+        scores, sub_ids = (rowscan_scores if rows else scan_scores)(
+            arrays.db, arrays.db_sq, arrays.vec_ids, arrays.list_sizes, q,
+            q_sq, lists, metric)
         vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
                                 torch.cat([ids, sub_ids], dim=-1), k, metric)
     return vals, ids

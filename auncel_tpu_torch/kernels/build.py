@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, from the package's own sources, into ``auncel_tpu_torch/_build/``
-(git-ignored). The library's file name carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads as is.
+(git-ignored). The library's file name carries a hash of the source, the
+shared headers and the flags, so an edited source or header rebuilds and
+an unchanged one loads as is.
 """
 
 import ctypes
@@ -42,9 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """The library's path, keyed by ``csrc/<name>.cu``, every shared header
+    ``csrc/*.cuh`` (which the sources include) and the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,28 +1,73 @@
-"""K1, the worklist row-scan: ``dots[t, c] = <db[work_rows[t], c, :], qs[t]>``.
+"""K1, the row scan of the multi-row layout (``csrc/rowscan.cu``).
 
-The hand-written CUDA kernel (``csrc/rowscan.cu``) replaces the Pallas TPU
-kernel ``auncel_tpu/pallas_kernels/rowscan.py::rowscan_dots`` with the same
-contract, without its ``T % 16 == 0`` requirement. It is bound by
-device-memory bandwidth (it reads ``T * row_cap * d * 4`` bytes and does one
-FMA per 4 bytes); see the source for what its design does about that.
+``rowscan_scores`` is the main path's: scores and candidate ids of every
+slot of every probed row, ``[B, n_slots * row_cap]`` each, with K2's
+contract (``kernels/scan_scores.py``) over rows: for query ``b``, row slot
+``s`` and slot ``c`` of ``r = rows[b, s]`` the score is
+``max((q_sq[b] + db_sq[r, c]) - 2 * dot, 0)`` for L2 and ``dot`` for IP, the
+id ``vec_ids[r, c]``; a slot is dead, with the metric's worst value and id
+-1, when ``r < 0`` (an inactive entry), ``c >= row_sizes[r]`` or
+``vec_ids[r, c] < 0``, and row ids ``>= n_rows`` clamp. Its kernel replaces
+the Pallas TPU kernel ``auncel_tpu/pallas_kernels/rowscan.py::rowscan_dots``
+together with the score assembly and masks its caller runs
+(``auncel_tpu/index/scan.py:249-268``). It is bound by device-memory
+bandwidth, and row-grouped: the live entries are grouped by row on the
+device, inactive entries read nothing, and each row is read once per chunk
+of up to 32 of the queries that probe it, through a TMA-fed ring.
 
-``rowscan_dots`` runs the kernel for CUDA tensors and the plain version,
-``rowscan_dots_ref``, for CPU tensors. A CUDA tensor never falls back: the
-kernel launches or the wrapper raises. ``rowscan_dots.launches`` counts the
-kernel launches.
+``rowscan_dots`` is the first, query-major port: the TPU kernel's own
+contract ``dots[t, c] = <db[work_rows[t], c, :], qs[t]>`` without its
+``T % 16`` rule; it reads a row once for every entry. Nothing on the
+serving paths calls it.
+
+Each runs its kernel for CUDA tensors and its plain version (``*_ref``)
+for CPU tensors. A CUDA tensor never falls back: the kernel launches or the
+wrapper raises. ``rowscan_scores.launches`` and ``rowscan_dots.launches``
+count the calls that launched a kernel.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from auncel_tpu_torch.kernels import build
+from auncel_tpu_torch.kernels.scan_scores import (
+    bind_scan, check_scan_args, launch_scan, scan_scores_ref)
+from auncel_tpu_torch.types import Metric
 
-# dynamic shared memory holds one query row; above 48 KB a launch would need
-# an opt-in attribute
+# rowscan_dots: dynamic shared memory holds one query row; above 48 KB a
+# launch would need an opt-in attribute
 MAX_D = 48 * 1024 // 4
 MAX_ROW_CAP = 65535 * 64  # grid.y limit x slots per block
 MAX_T = 2**31 - 1         # grid.x limit
+
+
+def rowscan_scores_ref(db, db_sq, vec_ids, row_sizes, q, q_sq, rows,
+                       metric: Metric):
+    """Plain PyTorch version: K2's, rows being lists."""
+    return scan_scores_ref(db, db_sq, vec_ids, row_sizes, q, q_sq, rows,
+                           metric)
+
+
+def rowscan_scores(db: torch.Tensor, db_sq: torch.Tensor,
+                   vec_ids: torch.Tensor, row_sizes: torch.Tensor,
+                   q: torch.Tensor, q_sq: torch.Tensor, rows: torch.Tensor,
+                   metric: Metric):
+    """Rows ``db [n_rows, row_cap, d]`` f32 with their ``db_sq``,
+    ``vec_ids`` and ``row_sizes``, queries ``q [B, d]`` f32 with ``q_sq``,
+    row slots ``rows [B, n_slots]`` int32 (-1: inactive) -> (scores
+    ``[B, n_slots * row_cap]`` f32, ids ``[B, n_slots * row_cap]`` int32)."""
+    args = (db, db_sq, vec_ids, row_sizes, q, q_sq, rows)
+    if check_scan_args("rowscan_scores", args, metric):
+        return rowscan_scores_ref(*args, metric)
+    scores, ids, launched = launch_scan("rowscan_scores", _library(), args,
+                                        metric)
+    rowscan_scores.launches += launched
+    return scores, ids
+
+
+rowscan_scores.launches = 0
 
 
 def rowscan_dots_ref(db: torch.Tensor, work_rows: torch.Tensor,
@@ -71,10 +116,10 @@ def rowscan_dots(db: torch.Tensor, work_rows: torch.Tensor,
     out = torch.empty((T, row_cap), dtype=torch.float32, device=db.device)
     if T == 0 or row_cap == 0 or d == 0:
         return out.zero_()
-    fn = _launcher()
-    err = fn(db.data_ptr(), work_rows.data_ptr(), qs.data_ptr(),
-             out.data_ptr(), T, n_rows, row_cap, d, db.device.index,
-             torch.cuda.current_stream(db.device).cuda_stream)
+    err = _library().rowscan_dots_launch(
+        db.data_ptr(), work_rows.data_ptr(), qs.data_ptr(), out.data_ptr(),
+        T, n_rows, row_cap, d, db.device.index,
+        torch.cuda.current_stream(db.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rowscan_dots kernel launch failed: CUDA error "
                            f"{err}")
@@ -85,11 +130,12 @@ def rowscan_dots(db: torch.Tensor, work_rows: torch.Tensor,
 rowscan_dots.launches = 0
 
 
-def _launcher():
-    lib = build.load("rowscan")
+@functools.cache
+def _library():
+    lib = bind_scan(build.load("rowscan"), "rowscan_scores")
     fn = lib.rowscan_dots_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return lib

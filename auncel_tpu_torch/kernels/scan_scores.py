@@ -23,7 +23,8 @@ probe it; see the source.
 kernel launches or the wrapper raises. ``scan_scores.launches`` counts the
 calls that launched it: one call enqueues the scan and, when there are
 more probes than one chunk of queries, the small kernels that build its
-worklist.
+worklist. K1's ``rowscan_scores`` (``kernels/rowscan.py``) has this contract
+over the multi-row layout's rows and shares the checks and the launch.
 """
 
 import ctypes
@@ -63,34 +64,82 @@ def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
     return scores.reshape(B, S * cap), sub_ids.reshape(B, S * cap)
 
 
-def _check(db, db_sq, vec_ids, list_sizes, q, q_sq, lists, metric):
+# the arguments of the shared contract, by position
+_ARG_NAMES = ("db", "db_sq", "vec_ids", "list_sizes", "q", "q_sq", "lists")
+
+
+def check_scan_args(name: str, args: tuple, metric) -> bool:
+    """Check the contract K2 and K1's ``rowscan_scores`` share (K1's lists
+    are rows). True when every tensor lies on the CPU, where the plain
+    version runs; False when they lie on one CUDA device; raises otherwise
+    (a tensor elsewhere never takes the plain version)."""
     if not isinstance(metric, Metric):
-        raise TypeError(f"scan_scores takes a Metric, got {metric!r}")
-    for name, t, dtype in (("db", db, torch.float32),
-                           ("db_sq", db_sq, torch.float32),
-                           ("vec_ids", vec_ids, torch.int32),
-                           ("list_sizes", list_sizes, torch.int32),
-                           ("q", q, torch.float32),
-                           ("q_sq", q_sq, torch.float32),
-                           ("lists", lists, torch.int32)):
+        raise TypeError(f"{name} takes a Metric, got {metric!r}")
+    dtypes = (torch.float32, torch.float32, torch.int32, torch.int32,
+              torch.float32, torch.float32, torch.int32)
+    for arg, t, dtype in zip(_ARG_NAMES, args, dtypes):
         if t.dtype != dtype:
-            raise TypeError(f"scan_scores takes {dtype} {name}, got "
-                            f"{t.dtype}")
+            raise TypeError(f"{name} takes {dtype} {arg}, got {t.dtype}")
+    db, db_sq, vec_ids, list_sizes, q, q_sq, lists = args
     if db.dim() != 3 or q.dim() != 2 or lists.dim() != 2:
-        raise ValueError("scan_scores takes db [nlist, cap, d], q [B, d] and "
-                         "lists [B, n_slots]")
+        raise ValueError(f"{name} takes db [nlist, cap, d], q [B, d] and "
+                         f"lists [B, n_slots]")
     nlist, cap, d = db.shape
     B = q.shape[0]
     if (db_sq.shape != (nlist, cap) or vec_ids.shape != (nlist, cap)
             or list_sizes.shape != (nlist,) or q.shape[1] != d
             or q_sq.shape != (B,) or lists.shape[0] != B):
-        raise ValueError(
-            f"shape mismatch: db {tuple(db.shape)}, db_sq "
-            f"{tuple(db_sq.shape)}, vec_ids {tuple(vec_ids.shape)}, "
-            f"list_sizes {tuple(list_sizes.shape)}, q {tuple(q.shape)}, "
-            f"q_sq {tuple(q_sq.shape)}, lists {tuple(lists.shape)}")
+        raise ValueError(f"{name}: shape mismatch: " + ", ".join(
+            f"{arg} {tuple(t.shape)}" for arg, t in zip(_ARG_NAMES, args)))
     if nlist == 0:
-        raise ValueError("scan_scores needs at least one list")
+        raise ValueError(f"{name} needs at least one list")
+    devices = {t.device for t in args}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or db.device.type != "cuda":
+        raise ValueError(f"{name} needs all tensors on one CUDA device or "
+                         f"all on the CPU, got {devices}")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError(f"{name} needs contiguous tensors")
+    B, S = lists.shape
+    if not 1 <= d <= MAX_D or cap > MAX_CAP or B * S > MAX_WORK:
+        raise ValueError(f"{name} supports 1 <= d <= {MAX_D}, cap <= "
+                         f"{MAX_CAP} and B * n_slots <= {MAX_WORK}, got "
+                         f"d={d} cap={cap} B*n_slots={B * S}")
+    return False
+
+
+def launch_scan(name: str, lib, args: tuple, metric):
+    """Enqueue ``lib``'s ``{name}_launch`` (with its worklist scratch) on
+    the args' CUDA device and current stream: (scores, ids, whether a
+    kernel was launched)."""
+    db, db_sq, vec_ids, list_sizes, q, q_sq, lists = args
+    nlist, cap, d = db.shape
+    B, S = lists.shape
+    scores = torch.empty((B, S * cap), dtype=torch.float32, device=db.device)
+    ids = torch.empty((B, S * cap), dtype=torch.int32, device=db.device)
+    if B * S == 0 or cap == 0:
+        return scores, ids, False
+    # the worklist's scratch (none up to one chunk of entries)
+    n_scratch = getattr(lib, f"{name}_scratch_ints")(nlist, cap, d, B * S)
+    if n_scratch < 0:
+        raise ValueError(f"{name}: the worklist for B * n_slots = {B * S} "
+                         f"over cap {cap} does not fit int32")
+    # freed on return while the kernels may still run: the caching
+    # allocator hands it out again only to work queued after them on this
+    # stream
+    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=db.device)
+               if n_scratch else None)
+    err = getattr(lib, f"{name}_launch")(
+        db.data_ptr(), db_sq.data_ptr(), vec_ids.data_ptr(),
+        list_sizes.data_ptr(), q.data_ptr(), q_sq.data_ptr(),
+        lists.data_ptr(), scores.data_ptr(), ids.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B * S, S, nlist,
+        cap, d, int(metric is Metric.L2), db.device.index,
+        torch.cuda.current_stream(db.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return scores, ids, True
 
 
 def scan_scores(db: torch.Tensor, db_sq: torch.Tensor, vec_ids: torch.Tensor,
@@ -101,63 +150,32 @@ def scan_scores(db: torch.Tensor, db_sq: torch.Tensor, vec_ids: torch.Tensor,
     probes ``lists [B, n_slots]`` int32 (-1: inactive) -> (scores
     ``[B, n_slots * cap]`` f32, ids ``[B, n_slots * cap]`` int32)."""
     args = (db, db_sq, vec_ids, list_sizes, q, q_sq, lists)
-    _check(*args, metric)
-    devices = {t.device for t in args}
-    if devices == {torch.device("cpu")}:
+    if check_scan_args("scan_scores", args, metric):
         return scan_scores_ref(*args, metric)
-    if len(devices) != 1 or db.device.type != "cuda":
-        raise ValueError(f"scan_scores needs all tensors on one CUDA device "
-                         f"or all on the CPU, got {devices}")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("scan_scores needs contiguous tensors")
-    nlist, cap, d = db.shape
-    B, S = lists.shape
-    if d > MAX_D or cap > MAX_CAP or B * S > MAX_WORK:
-        raise ValueError(f"scan_scores supports d <= {MAX_D}, cap <= "
-                         f"{MAX_CAP} and B * n_slots <= {MAX_WORK}, got "
-                         f"d={d} cap={cap} B*n_slots={B * S}")
-    scores = torch.empty((B, S * cap), dtype=torch.float32, device=db.device)
-    ids = torch.empty((B, S * cap), dtype=torch.int32, device=db.device)
-    if B * S == 0 or cap == 0:
-        return scores, ids
-    lib = _library()
-    # the worklist's scratch (none up to one chunk of entries)
-    n_scratch = lib.scan_scores_scratch_ints(nlist, cap, d, B * S)
-    if n_scratch < 0:
-        raise ValueError(f"scan_scores: the worklist for B * n_slots = "
-                         f"{B * S} over cap {cap} does not fit int32")
-    # freed on return while the kernels may still run: the caching
-    # allocator hands it out again only to work queued after them on this
-    # stream
-    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=db.device)
-               if n_scratch else None)
-    err = lib.scan_scores_launch(
-        db.data_ptr(), db_sq.data_ptr(), vec_ids.data_ptr(),
-        list_sizes.data_ptr(), q.data_ptr(), q_sq.data_ptr(),
-        lists.data_ptr(), scores.data_ptr(), ids.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), B * S, S, nlist,
-        cap, d, int(metric is Metric.L2), db.device.index,
-        torch.cuda.current_stream(db.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"scan_scores kernel launch failed: CUDA error "
-                           f"{err}")
-    scan_scores.launches += 1
+    scores, ids, launched = launch_scan("scan_scores", _library(), args,
+                                        metric)
+    scan_scores.launches += launched
     return scores, ids
 
 
 scan_scores.launches = 0
 
 
-@functools.cache
-def _library():
-    lib = build.load("scan_scores")
-    fn = lib.scan_scores_scratch_ints
+def bind_scan(lib, name: str):
+    """Set the ctypes signatures of ``lib``'s ``{name}_scratch_ints`` and
+    ``{name}_launch``."""
+    fn = getattr(lib, f"{name}_scratch_ints")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong]
     fn.restype = ctypes.c_longlong
-    fn = lib.scan_scores_launch
+    fn = getattr(lib, f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library():
+    return bind_scan(build.load("scan_scores"), "scan_scores")

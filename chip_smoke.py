@@ -3,15 +3,22 @@
     python3 chip_smoke.py
 
 Phases: the card; the kernels' build (one nvcc per source, in parallel);
-each kernel against its plain PyTorch version on synthetic inputs (K1 also
-at the one-shot engine's tail-round shape); the bounded-search main path on
-the multi-row layout (K1 in search, K2 in profile training): calibration
-with its measured dense crossover, the held-out window through the one-shot
-engine and batch-1 windows, then
-  [oneshot]        the 0.9 window, one-shot against the wave engine;
+each kernel against its plain PyTorch version on synthetic inputs: K1's
+rowscan_scores at the bench, one-shot tail-round and batch-1 worklists,
+timed in turns with the dots route it replaced (rowscan_dots and the score
+assembly as separate passes), K2 over the same rows and the plain version,
+and rowscan_dots alone; the bounded-search main path on the multi-row
+layout (K1 in search, K2 in profile training): calibration with its
+measured dense crossover, the held-out window through the one-shot engine
+and batch-1 windows, then
+  [oneshot]        the 0.9 window, one-shot against the wave engine, K1
+                   at the worklists its A1 waves recorded, and the window
+                   against itself with its row scans on the dots route;
   [oneshot strict] the window at bound 1.0 with stragglers past nlist/8,
-                   one-shot against the wave engine, and the dense routes
-                   (the per-query crossover, every query dense) against
+                   one-shot against the wave engine, K1 at the worklists
+                   its waves and rounds recorded, the window against
+                   itself on the dots route, and the dense routes (the
+                   per-query crossover, every query dense) against
                    gather;
   [dense decide]   the 0.9 window with the decisions from one corpus pass;
   [profile mode]   t_recalls of the 0.9 window;
@@ -25,7 +32,8 @@ kernel against its plain version on the index's own arrays, K2 at the
 shapes the main path gives it (the window's waves, a training chunk, batch
 1 and one list probed by every query). Every path is driven through the
 port's public entry points on their default device, with the kernels'
-launch counts set to 0 just before it and read just after. Exits non-zero
+launch counts set to 0 just before it and read just after (the launches
+that compare K1 with other routes are not counted). Exits non-zero
 when there is no CUDA device or any phase fails. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel.
 
@@ -33,20 +41,22 @@ when there is no CUDA device or any phase fails. The last line of stdout is
 
 ``--profile DIR`` also writes torch.profiler tables of one batched and one
 batch-1 search on each path, of the 0.9 and the strict window through the
-one-shot and the wave engine, and of one two-phase and one single-phase
-run of the phase-B window.
+one-shot and the wave engine, of the strict window through the one-shot
+engine with its row scans on the dots route, and of one two-phase and one
+single-phase run of the phase-B window.
 
     python3 chip_smoke.py --kernels
 
 builds and checks the kernels on synthetic inputs and on the index's own
-arrays, prints their ``[k1]``/``[k2]`` lines and stops: no serving path, no
-JSON lines. It times whichever ``auncel_tpu_torch`` is first on
-``sys.path``, so run from another tree's root with
+arrays, prints their ``[k1]``/``[k1 dots]``/``[k2]`` lines and stops: no
+serving path, no JSON lines. It times whichever ``auncel_tpu_torch`` is
+first on ``sys.path``, so run from another tree's root with
 ``python3 -c "import runpy, sys; sys.argv = ['chip_smoke.py', '--kernels'];
 runpy.run_path('PATH/chip_smoke.py', run_name='__main__')"`` it times that
 tree's kernels on the same shapes.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -140,22 +150,31 @@ def k2_work(db, db_sq, vec_ids, list_sizes, q, q_sq, lists) -> dict:
             "live_bytes": live_probed * slot_bytes + out_bytes}
 
 
-# (name, n_rows, row_cap, d, T): the multirow scan's shape at the
-# benchmark configuration, the one-shot engine's tail round (a sub-batch of
-# 256 queries at the first geometric width, 64 row slots), a ragged
-# worklist, and the scalar-load path
+# (name, n_rows, row_cap, d, T): the dots route's kernel (rowscan_dots) at
+# the multirow scan's shape at the benchmark configuration, the one-shot
+# engine's tail round (a sub-batch of 256 queries at the first geometric
+# width, 64 row slots), a ragged worklist, and the scalar-load path
 K1_SHAPES = (("bench", 4608, 256, 128, 4096),
              ("tail", 4608, 256, 128, 256 * 64),
              ("ragged", 4608, 256, 128, 4093),
              ("scalar", 64, 200, 100, 77))
+# (name, n_rows, row_cap, d, B, n_slots): rowscan_scores at the same bench
+# and tail worklists (T = B * n_slots), batch 1 in direct mode and through
+# the worklist, and the scalar-load path
+K1_ROW_SHAPES = (("bench", 4608, 256, 128, 1024, 4),
+                 ("tail", 4608, 256, 128, 256, 64),
+                 ("batch 1, direct", 4608, 256, 128, 1, 8),
+                 ("batch 1, worklist", 4608, 256, 128, 1, 64),
+                 ("scalar", 64, 200, 100, 33, 3))
 # (name, nlist, cap, d, B, n_slots): a padded layout with the benchmark's d,
 # and the scalar-load path
 K2_SHAPES = (("synthetic", 512, 1024, 128, 256, 5),
              ("scalar", 64, 300, 100, 33, 3))
 
 
-def k1_check(device, card: str) -> dict:
-    """Compare K1 with its plain version and time both."""
+def k1_dots_check(device, card: str) -> dict:
+    """Compare rowscan_dots, off the main path, with its plain version and
+    time both."""
     from auncel_tpu_torch.kernels.rowscan import (
         rowscan_dots, rowscan_dots_ref)
 
@@ -178,18 +197,132 @@ def k1_check(device, card: str) -> dict:
         gb = T * row_cap * d * 4 / 1e9
         t_k, t_ref = time_pair(lambda: rowscan_dots(db, rows, qs),
                                lambda: rowscan_dots_ref(db, rows, qs), 20)
-        log(f"[k1] {name}: T={T} row_cap={row_cap} d={d} max_abs_err="
+        log(f"[k1 dots] {name}: T={T} row_cap={row_cap} d={d} max_abs_err="
             f"{err:.3g} kernel {t_k:.4f} ms ({gb / t_k * 1e3:.1f} GB/s) "
             f"plain {t_ref:.4f} ms ({gb / t_ref * 1e3:.1f} GB/s) [{card}]")
         if name in ("bench", "tail"):
             b_ms, b_by = k1_bound(db, rows, qs)
-            log(f"[k1] {name}: bound {b_ms:.4f} ms ({b_by}; distinct rows "
-                f"read once), {100 * b_ms / t_k:.1f} % of it [{card}]")
+            log(f"[k1 dots] {name}: bound {b_ms:.4f} ms ({b_by}; distinct "
+                f"rows read once), {100 * b_ms / t_k:.1f} % of it [{card}]")
         if name == "bench":
             result = {"max_abs_err": err, "ms": t_k, "plain_ms": t_ref,
                       "bound_ms": b_ms, "bound_by": b_by}
         del db, rows, qs, got, want
     torch.cuda.empty_cache()
+    return result
+
+
+def dots_route(db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric):
+    """rowscan_scores' function as the main path computed it before that
+    kernel: rowscan_dots over every entry, masked or not (an inactive entry
+    reads row 0), then the score assembly and masks as separate passes. Row
+    ids clamp, as in the kernels."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.kernels.rowscan import rowscan_dots
+    from auncel_tpu_torch.types import worst_value
+    B, S = rows.shape
+    cap = db.shape[1]
+    in_limit = rows >= 0
+    safe = rows.clamp(0, db.shape[0] - 1)
+    dots = rowscan_dots(db, safe.reshape(-1),
+                        q.repeat_interleave(S, dim=0)).reshape(B, S, cap)
+    safe = safe.long()
+    sub_sq, sub_ids = db_sq[safe], vec_ids[safe]
+    if metric is Metric.L2:
+        scores = (q_sq[:, None, None] + sub_sq - 2.0 * dots).clamp_min(0.0)
+    else:
+        scores = dots
+    active = in_limit[:, :, None] & (sub_ids >= 0)
+    scores = torch.where(active, scores, worst_value(metric))
+    sub_ids = torch.where(active, sub_ids, -1)
+    return scores.reshape(B, S * cap), sub_ids.reshape(B, S * cap)
+
+
+def time_routes(routes: dict, reps: int) -> dict:
+    """Milliseconds per call of each route (CUDA events over reps calls),
+    in turns: every route in order, then in reverse; the lesser of the
+    two."""
+    out = {}
+    for name in list(routes) + list(routes)[::-1]:
+        t = cuda_time_ms(routes[name], reps)
+        out[name] = min(out.get(name, t), t)
+    return out
+
+
+def k1_compare(name, args, metric, card: str, reps: int = 20,
+               terms_tol: bool = False) -> dict:
+    """rowscan_scores against its plain version on one input set (ids and
+    dead slots equal; scores within rtol = atol = 1e-5, or with
+    ``terms_tol`` within 1e-5 of q_sq + db_sq, as k2_compare), timed in
+    turns with the dots route, K2 over the same rows and the plain version;
+    returns its numbers."""
+    from auncel_tpu_torch.kernels.rowscan import (
+        rowscan_scores, rowscan_scores_ref)
+    from auncel_tpu_torch.kernels.scan_scores import scan_scores
+    routes = {"kernel": lambda: rowscan_scores(*args, metric),
+              "dots route": lambda: dots_route(*args, metric),
+              "K2 on rows": lambda: scan_scores(*args, metric),
+              "plain": lambda: rowscan_scores_ref(*args, metric)}
+    got_s, got_i = routes["kernel"]()
+    want_s, want_i = routes["plain"]()
+    torch.cuda.synchronize()
+    check(torch.equal(got_i, want_i), f"K1 {name}: ids differ")
+    check(torch.equal(torch.isfinite(got_s), torch.isfinite(want_s)),
+          f"K1 {name}: dead slots differ")
+    fin = torch.isfinite(want_s)
+    diff = (got_s - want_s).abs()[fin]
+    err = float(diff.max()) if diff.numel() else 0.0
+    db, db_sq, _, _, _, q_sq, rows = args
+    if terms_tol:
+        B, S = rows.shape
+        sel = rows.long().clamp(0, db.shape[0] - 1)
+        terms = (q_sq[:, None, None] + db_sq[sel]).reshape(B, -1)
+        check(bool((diff <= 1e-5 * terms[fin] + 1e-5).all()),
+              f"K1 {name}: scores beyond 1e-5 of their terms")
+        tol = "1e-5 of q_sq + db_sq"
+    else:
+        torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
+        tol = "rtol = atol = 1e-5"
+    for other in ("dots route", "K2 on rows"):
+        check(torch.equal(routes[other]()[1], got_i),
+              f"K1 {name}: the {other} gives other ids")
+    del got_s, got_i, want_s, want_i, diff, fin
+    t = time_routes(routes, reps)
+    t_dev = device_ms(routes["kernel"], 10)
+    work = k2_work(*args)
+    live = rows >= 0
+    distinct = int(torch.unique(
+        rows[live].clamp_max(db.shape[0] - 1)).numel())
+    pct = 100 * work["bound_ms"] / t["kernel"]
+    log(f"[k1] {name}: B={rows.shape[0]} n_slots={rows.shape[1]} row_cap="
+        f"{db.shape[1]} d={db.shape[2]} {metric.name} live share "
+        f"{float(live.float().mean()) if live.numel() else 0.0:.3f} distinct "
+        f"live rows {distinct} max_abs_err={err:.3g} ({tol}); kernel "
+        f"{t['kernel']:.4f} ms ({pct:.1f} % of the bound; device time a call "
+        + ("not measured" if t_dev is None else f"{t_dev:.4f} ms")
+        + f"), dots route {t['dots route']:.4f} ms, K2 on rows "
+        f"{t['K2 on rows']:.4f} ms, plain {t['plain']:.4f} ms; bound "
+        f"{work['bound_ms']:.4f} ms ({work['bound_by']}, "
+        f"{work['bound_bytes'] / 1e9:.3f} GB: each distinct live row read "
+        f"once) [{card}]")
+    return {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "dots_ms": t["dots route"], "k2_ms": t["K2 on rows"]}
+
+
+def k1_check(device, card: str) -> dict:
+    """rowscan_scores on synthetic row layouts at K1_ROW_SHAPES, both
+    metrics at the bench shape; returns the bench shape's L2 numbers."""
+    from auncel_tpu_torch import Metric
+    result = None
+    for name, *shape in K1_ROW_SHAPES:
+        args = synthetic_padded(device, *shape, seed=3, full=0.9, drop=0.0)
+        for metric in ((Metric.L2, Metric.IP) if name == "bench"
+                       else (Metric.L2,)):
+            res = k1_compare(f"{name} {metric.name}", args, metric, card)
+            result = result or res
+        del args
+        torch.cuda.empty_cache()
     return result
 
 
@@ -259,16 +392,22 @@ def k2_compare(name, args, metric, card: str, reps: int = 20,
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
 
 
-def synthetic_padded(device, nlist, cap, d, B, n_slots, seed):
+def synthetic_padded(device, nlist, cap, d, B, n_slots, seed,
+                     full: float = 0.0, drop: float = 0.2):
     """A padded layout as _pack lays it out (ragged live prefix, id -1 and
-    zero vectors after it, one dead id inside a list), with probes that hold
-    inactive slots (-1) and out-of-range list ids; entries ~ N(0, 1/d), so
-    scores are O(1) and the fp32 error of another sum order (~1e-7) sits
-    well inside 1e-5."""
+    zero vectors after it, one dead id inside a list), with probes of which
+    a share ``drop`` is inactive (-1) and one out of range; entries
+    ~ N(0, 1/d), so scores are O(1) and the fp32 error of another sum order
+    (~1e-7) sits well inside 1e-5. With ``full``, that share of the lists is
+    full, as the rows of the multi-row layout are but each list's last."""
     gen = torch.Generator(device=device).manual_seed(seed)
     s = d ** -0.5
     sizes = torch.randint(0, cap + 1, (nlist,), generator=gen,
                           device=device, dtype=torch.int32)
+    if full:
+        sizes = torch.where(torch.rand((nlist,), generator=gen,
+                                       device=device) < full, cap,
+                            sizes).to(torch.int32)
     live = torch.arange(cap, device=device)[None, :] < sizes[:, None]
     ids = torch.where(live, torch.arange(nlist * cap, device=device,
                                          dtype=torch.int32).reshape(nlist,
@@ -280,9 +419,10 @@ def synthetic_padded(device, nlist, cap, d, B, n_slots, seed):
     q = torch.randn((B, d), generator=gen, device=device) * s
     lists = torch.randint(0, nlist, (B, n_slots), generator=gen,
                           device=device, dtype=torch.int32)
-    drop = torch.rand((B, n_slots), generator=gen, device=device) < 0.2
-    lists = torch.where(drop, -1, lists)
-    lists[0, 0] = nlist + 3
+    dropped = torch.rand((B, n_slots), generator=gen, device=device) < drop
+    lists = torch.where(dropped, -1, lists)
+    if B * n_slots:
+        lists[0, 0] = nlist + 3
     return (db, (db * db).sum(-1), ids.to(torch.int32), sizes, q,
             (q * q).sum(-1), lists)
 
@@ -317,18 +457,129 @@ def synced(fn):
     return out, time.perf_counter() - t0
 
 
-def launch_counts() -> dict:
-    from auncel_tpu_torch.kernels.rowscan import rowscan_dots
+def kernel_wrappers() -> dict:
+    from auncel_tpu_torch.kernels.rowscan import rowscan_dots, rowscan_scores
     from auncel_tpu_torch.kernels.scan_scores import scan_scores
-    return {"rowscan_dots": rowscan_dots.launches,
-            "scan_scores": scan_scores.launches}
+    return {"rowscan_scores": rowscan_scores, "rowscan_dots": rowscan_dots,
+            "scan_scores": scan_scores}
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def set_counts(counts: dict) -> None:
+    for k, fn in kernel_wrappers().items():
+        fn.launches = counts[k]
 
 
 def reset_counts() -> None:
-    from auncel_tpu_torch.kernels.rowscan import rowscan_dots
+    set_counts({k: 0 for k in kernel_wrappers()})
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside compare kernels with other routes: they are not the
+    main path's, so the counts are restored after."""
+    saved = launch_counts()
+    try:
+        yield
+    finally:
+        set_counts(saved)
+
+
+@contextlib.contextmanager
+def row_scans_through(fn):
+    """The serving path's row scans (index/scan.py's rowscan_scores) go
+    through fn(real, *args) instead."""
+    import auncel_tpu_torch.index.scan as scan
+    real = scan.rowscan_scores
+    scan.rowscan_scores = lambda *args: fn(real, *args)
+    try:
+        yield
+    finally:
+        scan.rowscan_scores = real
+
+
+def on_dots_route(fn):
+    """fn with the serving path's row scans on the dots route."""
+    def run():
+        with row_scans_through(lambda real, *args: dots_route(*args)):
+            return fn()
+    return run
+
+
+def against_dots_route(label: str, fn, card: str) -> None:
+    """A window (fn: its D, I and n_scanned) with its row scans by K1
+    against the same window on the dots route, timed in turns; the results'
+    differences are reported."""
+    bad = differ(fn(), on_dots_route(fn)())
+    ms_k1, ms_dots, t_k1, t_dots = in_turns(fn, on_dots_route(fn), 2)
+    log(f"[{label}] row scans by K1 {ms_k1:.2f} ms ({t_k1}) against the "
+        f"dots route {ms_dots:.2f} ms ({t_dots}); queries whose ids differ "
+        f"{bad[0]}, n_scanned differ {bad[1]}, max |D| diff {bad[2]:.3g} "
+        f"[{card}]")
+
+
+def engine_stage() -> str:
+    """Which part of the one-shot engine made the current call."""
+    names = set()
+    f = sys._getframe(1)
+    while f is not None:
+        names.add(f.f_code.co_name)
+        f = f.f_back
+    for fn, stage in (("_tail_rounds", "tail round"), ("_a2_rounds", "A2"),
+                      ("bounded_oneshot_mr", "A1 wave")):
+        if fn in names:
+            return stage
+    return "wave"
+
+
+def record_row_scans(fn) -> list:
+    """Run fn and return the inputs of every row scan it made, as (engine
+    stage, args, metric): queries, norms and row slots copied, the index's
+    tensors by reference."""
+    calls = []
+
+    def record(real, db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric):
+        calls.append((engine_stage(), (db, db_sq, vec_ids, row_sizes,
+                                       q.clone(), q_sq.clone(), rows.clone()),
+                      metric))
+        return real(db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric)
+
+    with row_scans_through(record):
+        fn()
+    return calls
+
+
+def k1_recorded(label: str, calls: list, card: str) -> dict:
+    """K1 at the worklists a window's row scans gave it: each call checked
+    against the plain version (within 1e-5 of q_sq + db_sq) and timed in
+    turns with the dots route, K2 on the same rows and the plain version;
+    then the sums over the window, and each route's device time over all
+    the calls (torch.profiler)."""
+    from auncel_tpu_torch.kernels.rowscan import rowscan_scores
     from auncel_tpu_torch.kernels.scan_scores import scan_scores
-    rowscan_dots.launches = 0
-    scan_scores.launches = 0
+    tot = {"ms": 0.0, "dots_ms": 0.0, "k2_ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0}
+    for i, (stage, args, metric) in enumerate(calls):
+        res = k1_compare(f"{label}, call {i + 1} of {len(calls)} ({stage})",
+                         args, metric, card, reps=10, terms_tol=True)
+        for k in tot:
+            tot[k] += res[k]
+    dev = {}
+    for name, fn in (("kernel", rowscan_scores), ("dots route", dots_route),
+                     ("K2 on rows", scan_scores)):
+        t = device_ms(lambda: [fn(*a, m) for _, a, m in calls], 3)
+        dev[name] = "not measured" if t is None else f"{t:.3f} ms"
+    log(f"[k1] {label}, all {len(calls)} row scans: kernel {tot['ms']:.3f} "
+        f"ms ({100 * tot['bound_ms'] / tot['ms']:.1f} % of the summed bound "
+        f"{tot['bound_ms']:.3f} ms), dots route {tot['dots_ms']:.3f} ms, K2 "
+        f"on rows {tot['k2_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms; "
+        f"device time over the calls (profiler): kernel {dev['kernel']}, "
+        f"dots route {dev['dots route']}, K2 on rows {dev['K2 on rows']} "
+        f"[{card}]")
+    return tot
 
 
 def counted(fn):
@@ -465,8 +716,10 @@ def multirow_path(c: dict, card: str, profile_dir: str | None) -> dict:
     log(f"[multirow] launches over the path: {launches}, profile training "
         f"{train}")
     check(train["scan_scores"] > 0, "profile training never launched K2")
-    check(window["launches"]["rowscan_dots"] > 0
-          and lat.get("rowscan_dots", 0) > 0, "search never launched K1")
+    check(window["launches"]["rowscan_scores"] > 0
+          and lat.get("rowscan_scores", 0) > 0, "search never launched K1")
+    check(launches["rowscan_dots"] == 0,
+          "the multi-row path launched rowscan_dots")
     if profile_dir:
         profile_search(es, profile_dir, card, "multirow")
     return launches
@@ -513,7 +766,8 @@ def padded_path(c: dict, card: str, profile_dir: str | None) -> dict:
     check(window["launches"]["scan_scores"] > 0,
           "the two-phase window never launched K2")
     check(lat.get("scan_scores", 0) > 0, "batch-1 never launched K2")
-    check(launches["rowscan_dots"] == 0, "the padded path launched K1")
+    check(launches["rowscan_scores"] == 0 and launches["rowscan_dots"] == 0,
+          "the padded path launched K1")
     if profile_dir:
         profile_search(es, profile_dir, card, "padded")
     return launches
@@ -679,6 +933,10 @@ def oneshot_phase(es, gt_D, card: str, profile_dir: str | None) -> dict:
         profile_call(lambda: oneshot_route(es), profile_dir, card,
                      "oneshot window")
         profile_call(wave, profile_dir, card, "wave window")
+    calls = record_row_scans(lambda: oneshot_route(es))
+    with uncounted():
+        k1_recorded("0.9 window", calls, card)
+        against_dots_route("oneshot", lambda: oneshot_route(es), card)
     es.dense_auto = saved
     return {"oneshot_ms": ms_one, "wave_ms": ms_wave, "n_scanned": one[2]}
 
@@ -730,11 +988,18 @@ def strict_phase(es, card: str, profile_dir: str | None) -> dict:
         profile_call(lambda: oneshot_route(es), profile_dir, card,
                      "strict oneshot")
         profile_call(wave, profile_dir, card, "strict wave")
+    calls = record_row_scans(lambda: oneshot_route(es))
+    with uncounted():
+        rec = k1_recorded("strict window", calls, card)
+        against_dots_route("oneshot strict", lambda: oneshot_route(es), card)
+        if profile_dir:
+            profile_call(on_dots_route(lambda: oneshot_route(es)),
+                         profile_dir, card, "strict oneshot, dots route")
     q = torch.as_tensor(es.queries[held_out()], device=idx.device)
     q_sq = (q * q).sum(1).cpu().numpy()
     norms = result_norms(idx)
     out = {"gather_ms": ms_one, "wave_ms": ms_wave,
-           "stragglers": stragglers}
+           "stragglers": stragglers, "k1": rec}
     def routed(cut):
         def run():
             es.dense_cut = cut
@@ -866,7 +1131,7 @@ def time_mode_phase(es, card: str) -> dict:
         f"{np.percentile(wall, 50):.2f} ms max {wall.max():.2f} ms; "
         f"launches {launches} [{card}]")
     check(np.array_equal(spent, want), "time_search spent other counts")
-    check(launches.get("rowscan_dots", 0) > 0, "time_search never "
+    check(launches.get("rowscan_scores", 0) > 0, "time_search never "
           "launched K1")
     es.set_queries(es.num, es.queries, saved)
     # a fixed nprobe: the tail rounds against the fixed-nprobe scan
@@ -1058,6 +1323,7 @@ def main() -> int:
         profile_dir = sys.argv[sys.argv.index("--profile") + 1]
 
     k1 = k1_check(device, card)
+    k1_dots = k1_dots_check(device, card)
     k2_check(device, card)
     corpus = build_corpus(card)
     if "--kernels" in sys.argv:
@@ -1068,19 +1334,25 @@ def main() -> int:
     pad_launches = padded_path(corpus, card, profile_dir)
     k2 = kernels_on_index(corpus, device, card)
     log(f"[total] {time.perf_counter() - t0:.1f} s")
+    def launches(name):
+        return mr_launches[name] + pad_launches[name]
+
     kernels = [
+        {"name": "rowscan_scores", "route": "cuda",
+         "source": "auncel_tpu_torch/csrc/rowscan.cu",
+         "replaces": "auncel_tpu/pallas_kernels/rowscan.py:77",
+         "launches": launches("rowscan_scores"), "library_ms": None,
+         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by")}},
         {"name": "rowscan_dots", "route": "cuda",
          "source": "auncel_tpu_torch/csrc/rowscan.cu",
          "replaces": "auncel_tpu/pallas_kernels/rowscan.py:77",
-         "launches": (mr_launches["rowscan_dots"]
-                      + pad_launches["rowscan_dots"]),
-         "library_ms": None, **k1},
+         "launches": launches("rowscan_dots"), "library_ms": None,
+         **k1_dots},
         {"name": "scan_scores", "route": "cuda",
          "source": "auncel_tpu_torch/csrc/scan_scores.cu",
          "replaces": "auncel_tpu/pallas_kernels/scan_scores.py:89",
-         "launches": (mr_launches["scan_scores"]
-                      + pad_launches["scan_scores"]),
-         "library_ms": None, **k2}]
+         "launches": launches("scan_scores"), "library_ms": None, **k2}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
-"""The port on a CUDA card, skipped without one: K1 and K2 against their
-plain versions, and the bounded-search slices (the multi-row path and the
-padded path) on the card against the same slices on the CPU, where the
-kernels' plain versions run. The entry points' default device is checked
-everywhere. This file imports no jax, so it also runs where jax is not
-installed, without the suite's conftest:
+"""The port on a CUDA card, skipped without one: K1 (rowscan_scores on the
+main path, rowscan_dots beside it) and K2 against their plain versions, and
+the bounded-search slices (the multi-row path and the padded path) on the
+card against the same slices on the CPU, where the kernels' plain versions
+run. The entry points' default device is checked everywhere. This file
+imports no jax, so it also runs where jax is not installed, without the
+suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -17,7 +18,8 @@ import torch
 import auncel_tpu_torch as att
 from auncel_tpu_torch import convert
 from auncel_tpu_torch.index.ivf import compute_interdis
-from auncel_tpu_torch.kernels.rowscan import rowscan_dots, rowscan_dots_ref
+from auncel_tpu_torch.kernels.rowscan import (
+    rowscan_dots, rowscan_dots_ref, rowscan_scores, rowscan_scores_ref)
 from auncel_tpu_torch.kernels.scan_scores import scan_scores, scan_scores_ref
 from auncel_tpu_torch.ops.kmeans import kmeans
 from auncel_tpu_torch.types import Metric
@@ -169,6 +171,69 @@ def test_k2_list_major_cases(case):
         torch.testing.assert_close(scores, want_s, rtol=1e-5, atol=1e-5)
 
 
+def _rows_one_row(B, S, n_rows, gen, dev):
+    return torch.full((B, S), 5, dtype=torch.int32, device=dev)
+
+
+def _rows_inactive(B, S, n_rows, gen, dev):
+    return torch.full((B, S), -1, dtype=torch.int32, device=dev)
+
+
+# (n_rows, row_cap, d, B, n_slots, rows or None for padded_inputs' own):
+# the row scan's edge cases (each at L2 and IP)
+K1_CASES = {
+    "rows of 256 x 128, worklist mode": (300, 256, 128, 64, 8, None),
+    "every entry inactive": (64, 256, 128, 40, 8, _rows_inactive),
+    "one row probed by more than 32 queries": (64, 256, 128, 100, 2,
+                                               _rows_one_row),
+    "batch 1, direct mode": (64, 256, 128, 1, 8, None),
+    "d = 100, no 16-byte path": (64, 200, 100, 40, 4, None),
+    "row_cap not a multiple of the tile": (64, 77, 128, 50, 3, None),
+    "T = 1": (16, 256, 128, 1, 1, None),
+    "T = 0": (16, 256, 128, 0, 4, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_k1_rowscan_scores_cases(case):
+    """K1 against its plain version (ids equal, scores within 1e-5 on
+    N(0, 1/d) data), and bitwise equal to K2 over the same rows: the two
+    share their dot units and epilogue arithmetic."""
+    dev = _card()
+    n_rows, row_cap, d, B, n_slots, make_rows = K1_CASES[case]
+    args = list(padded_inputs(n_rows, row_cap, d, B, n_slots, dev, seed=5))
+    if make_rows is not None:
+        gen = torch.Generator(device=dev).manual_seed(6)
+        args[6] = make_rows(B, n_slots, n_rows, gen, dev)
+    for metric in (Metric.L2, Metric.IP):
+        before = rowscan_scores.launches
+        scores, ids = rowscan_scores(*args, metric)
+        torch.cuda.synchronize()
+        assert rowscan_scores.launches == before + (B * n_slots > 0)
+        want_s, want_i = rowscan_scores_ref(*args, metric)
+        assert torch.equal(ids, want_i)
+        torch.testing.assert_close(scores, want_s, rtol=1e-5, atol=1e-5)
+        k2_s, k2_i = scan_scores(*args, metric)
+        assert torch.equal(scores, k2_s) and torch.equal(ids, k2_i)
+
+
+@pytest.mark.cuda
+def test_k1_direct_mode_equals_worklist_mode():
+    """A query's entries alone (one chunk: the direct mode, one launch)
+    give bitwise the scores and ids of the same entries inside a batch
+    (the worklist)."""
+    dev = _card()
+    args = padded_inputs(300, 256, 128, 40, 8, dev, seed=7)
+    scores, ids = rowscan_scores(*args, Metric.L2)
+    for b in range(0, 40, 7):
+        one = [t[b:b + 1] if i >= 4 else t for i, t in enumerate(args)]
+        s1, i1 = rowscan_scores(*one, Metric.L2)
+        torch.cuda.synchronize()
+        assert torch.equal(s1, scores[b:b + 1]) and torch.equal(i1,
+                                                               ids[b:b + 1])
+
+
 def _slice(device):
     """The main path after k-means, at the parity fixture's size."""
     centers, xb, xq = make_data()
@@ -196,9 +261,9 @@ def _slice(device):
 def test_slice_on_the_card_matches_the_cpu():
     dev = _card()
     cpu = _slice("cpu")
-    before = rowscan_dots.launches
+    k1, dots = rowscan_scores.launches, rowscan_dots.launches
     card = _slice(dev)
-    assert rowscan_dots.launches > before
+    assert rowscan_scores.launches > k1 and rowscan_dots.launches == dots
     np.testing.assert_array_equal(card["gt_I"], cpu["gt_I"])
     assert card["mult"] == cpu["mult"]
     for name in ("I", "np", "ns", "I1", "np1"):
@@ -238,9 +303,11 @@ def _padded_slice(device):
 def test_padded_path_on_the_card_matches_the_cpu():
     dev = _card()
     cpu = _padded_slice("cpu")
-    k1, k2 = rowscan_dots.launches, scan_scores.launches
+    k1, dots, k2 = (rowscan_scores.launches, rowscan_dots.launches,
+                    scan_scores.launches)
     card = _padded_slice(dev)
-    assert scan_scores.launches > k2 and rowscan_dots.launches == k1
+    assert scan_scores.launches > k2
+    assert rowscan_scores.launches == k1 and rowscan_dots.launches == dots
     assert card["mult"] == cpu["mult"]
     for name in ("I", "np", "ns", "I1", "np1", "ns1"):
         np.testing.assert_array_equal(card[name], cpu[name])
