@@ -3,8 +3,10 @@
 Each function takes the JAX package's state as a dict of numpy arrays
 (``{name: np.asarray(value)}`` of an ``IVFArrays``, ``MultiRowArrays`` or
 ``TraceSet``; a nested ``rows`` dict for ``MultiRowArrays``), so this module
-imports no jax. With them both packages compute on identical state. The
-tensors go to the card unless ``device`` says otherwise.
+imports no jax. The storage codec comes across as it is: float32 or
+bfloat16 vectors, or SQ codes with their range. With them both packages
+compute on identical state. The tensors go to the card unless ``device``
+says otherwise.
 """
 
 import numpy as np
@@ -23,14 +25,33 @@ def _tensor(name: str, a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype, order="C"), device=device)
 
 
+def _storage(a) -> torch.Tensor:
+    """The stored vectors as they are: float32, uint8 codes, or bfloat16,
+    whose bytes are reinterpreted (never rounded through float32; the
+    dtype is recognised by name, so no ml_dtypes import is needed)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .copy()).view(torch.bfloat16)
+    if a.dtype == np.uint8:
+        return torch.from_numpy(np.ascontiguousarray(a).copy())
+    return torch.as_tensor(np.array(a, dtype=np.float32, order="C"))
+
+
 def ivf_arrays_from_numpy(state: dict, device="cuda") -> IVFArrays:
-    """IVFArrays from the JAX package's IVFArrays fields (f32 storage)."""
-    for codec in ("sq_scale", "pq_codebooks"):
-        if state.get(codec) is not None:
-            raise NotImplementedError(
-                f"{codec}: only float32 storage is ported")
-    return IVFArrays(**{f: _tensor(f, state[f], device)
-                        for f in IVFArrays._fields})
+    """IVFArrays from the JAX package's IVFArrays fields: float32 or
+    bfloat16 vectors, or uint8 SQ codes with ``sq_scale`` and ``sq_bias``.
+    PQ state raises ``NotImplementedError``."""
+    if state.get("pq_codebooks") is not None:
+        raise NotImplementedError("pq_codebooks: PQ storage is not ported")
+    fields = {}
+    for f in IVFArrays._fields:
+        v = state.get(f)
+        if f == "db":
+            fields[f] = _storage(v).to(device)
+        elif v is not None:
+            fields[f] = _tensor(f, v, device)
+    return IVFArrays(**fields)
 
 
 def multirow_from_numpy(state: dict, device="cuda") -> MultiRowArrays:

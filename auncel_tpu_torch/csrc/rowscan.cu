@@ -16,10 +16,21 @@
 // the TPU kernel's dots fused with the score assembly and masks that its
 // caller ran as separate passes (auncel_tpu/index/scan.py:249-268).
 //
+// Storage codecs (worklist.cuh): db holds float32 or bfloat16 vectors, or
+// uint8 SQ8/SQ4/SQ6 codes with sq_scale and sq_bias; the ring stages a
+// tile's stored bytes and the dot units decode each element in registers
+// (the XLA route decodes a gathered block before the TPU kernel,
+// auncel_tpu/index/scan.py:226). A tile goes by one TMA bulk copy when a
+// slot is a multiple of 16 bytes and the bases are aligned (float32 at d %
+// 4 == 0, SQ8 at d % 16 == 0); otherwise the block copies it (cp.async of
+// 16 or 4 bytes as its address allows, else byte by byte) and arrives on
+// the same mbarriers.
+//
 // What bounds it: device-memory bandwidth. The least traffic is each
-// distinct live row's live slots read once and 8 bytes (score and id)
-// written for every output slot. The TPU kernel's schedule, one program per
-// (query, row) entry, reads a row once for every query that probes it, and
+// distinct live row's live slots read once (the stored bytes, plus norm and
+// id) and 8 bytes (score and id) written for every output slot. The TPU
+// kernel's schedule, one program per (query, row) entry, reads a row once
+// for every query that probes it, and
 // the TPU route computes masked entries too. So this design is row-grouped
 // and limit-aware:
 //   * inactive entries read nothing; fill units write their worst values
@@ -59,6 +70,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "worklist.cuh"
 
 namespace {
@@ -69,17 +82,19 @@ namespace {
 // dots, q_sq and entries
 constexpr size_t kBarBytes = 128;
 
-Config row_config(int n_rows, int row_cap, int d, long long n_work) {
-  Config c = make_config(n_rows, row_cap, d, n_work, 0);  // a row an item
-  c.smem = kBarBytes + 4 * ((size_t)kStages * c.tile * d +
-                            (size_t)c.chunk * d + (size_t)c.chunk * c.tile +
-                            2 * c.chunk);
+Config row_config(int n_rows, int row_cap, int d, int slot_bytes,
+                  long long n_work) {
+  // a row an item
+  Config c = make_config(n_rows, row_cap, d, slot_bytes, n_work, 0);
+  c.smem = kBarBytes + (size_t)kStages * c.stage_bytes +
+           4 * ((size_t)c.chunk * d + (size_t)c.chunk * c.tile +
+                2 * c.chunk);
   return c;
 }
 
 struct RowSmem {
-  uint64_t* full;  // [kStages] mbarriers: the stage's copy has landed
-  float* ring;     // [kStages][tile][d]
+  uint64_t* full;       // [kStages] mbarriers: the stage's copy has landed
+  unsigned char* ring;  // [kStages][stage_bytes]: tile stored slots each
   float* qs;       // [chunk][d]
   float* dots;     // [chunk][tile]
   float* qsq;      // [chunk]
@@ -90,8 +105,8 @@ __device__ __forceinline__ RowSmem carve_rows(const Params& p,
                                               unsigned char* base) {
   RowSmem s;
   s.full = reinterpret_cast<uint64_t*>(base);
-  s.ring = reinterpret_cast<float*>(base + kBarBytes);
-  s.qs = s.ring + kStages * p.tile * p.d;
+  s.ring = base + kBarBytes;
+  s.qs = reinterpret_cast<float*>(s.ring + kStages * p.stage_bytes);
   s.dots = s.qs + p.chunk * p.d;
   s.qsq = s.dots + p.chunk * p.tile;
   s.rows = reinterpret_cast<int*>(s.qsq + p.chunk);
@@ -141,7 +156,7 @@ __device__ __forceinline__ void tma_load(void* dst, const void* src,
 // Scores and ids of row r's live slots [c_begin, c_end) for nq entries
 // (ents: b * n_slots + s), each slot read from device memory once.
 // `phases` holds the parity of each stage's next completion.
-template <bool kTma>
+template <typename Codec, bool kVec4, bool kTma>
 __device__ void scan_row(const Params& p, const RowSmem& s, int r,
                          int c_begin, int c_end, int nq, const int* ents,
                          unsigned& phases) {
@@ -153,14 +168,22 @@ __device__ void scan_row(const Params& p, const RowSmem& s, int r,
   auto issue = [&](int t) {
     const int c0 = c_begin + t * p.tile;
     const int n = min(p.tile, c_end - c0);
-    float* dst = s.ring + (t % kStages) * p.tile * d;
-    const float* src = p.db + (row_off + c0) * d;
+    unsigned char* dst = s.ring + (t % kStages) * p.stage_bytes;
+    const unsigned char* src = static_cast<const unsigned char*>(p.db) +
+                               (row_off + c0) * p.slot_bytes;
     uint64_t* bar = s.full + t % kStages;
     if (kTma) {
-      if (threadIdx.x == 0) tma_load(dst, src, (unsigned)(n * d * 4), bar);
+      if (threadIdx.x == 0)
+        tma_load(dst, src, (unsigned)(n * p.slot_bytes), bar);
     } else {
-      for (int i = threadIdx.x; i < n * d; i += kThreads)
-        cp_async4(dst + i, src + i);
+      if constexpr (std::is_same<Codec, F32>::value) {
+        float* fdst = reinterpret_cast<float*>(dst);
+        const float* fsrc = reinterpret_cast<const float*>(src);
+        for (int i = threadIdx.x; i < n * d; i += kThreads)
+          cp_async4(fdst + i, fsrc + i);
+      } else {
+        copy_bytes(dst, src, n * p.slot_bytes);
+      }
       asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
                        "r"(smem_addr(bar))
                    : "memory");
@@ -179,7 +202,7 @@ __device__ void scan_row(const Params& p, const RowSmem& s, int r,
   for (int k = warp; k < nq; k += kWarps) {
     const float* src = p.q + (long long)(s.rows[k] / p.n_slots) * d;
     float* dst = s.qs + k * d;
-    if (kTma) {
+    if (kVec4) {
       for (int i = lane; i < (d >> 2); i += 32)
         reinterpret_cast<float4*>(dst)[i] =
             __ldg(reinterpret_cast<const float4*>(src) + i);
@@ -207,7 +230,8 @@ __device__ void scan_row(const Params& p, const RowSmem& s, int r,
     phases ^= 1u << st;
     __syncthreads();  // the staged queries; the last tile's epilogue is done
 
-    tile_dots<kTma>(p, s.qs, s.dots, s.ring + st * p.tile * d, n_live, nq);
+    tile_dots<Codec, kVec4>(p, s.qs, s.dots, s.ring + st * p.stage_bytes,
+                            n_live, nq);
     __syncthreads();
     if (t + 2 < n_tiles) issue(t + 2);
 
@@ -238,7 +262,7 @@ __device__ void scan_row(const Params& p, const RowSmem& s, int r,
   __syncthreads();  // the next item reuses the buffers
 }
 
-template <bool kTma>
+template <typename Codec, bool kVec4, bool kTma>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rowscan_scores_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -252,22 +276,38 @@ rowscan_scores_kernel(const Params p) {
   __syncthreads();
   unsigned phases = 0;
   run_units(p, [&](int r, int c_begin, int c_end, int nq, const int* ents) {
-    scan_row<kTma>(p, s, r, c_begin, c_end, nq, ents, phases);
+    scan_row<Codec, kVec4, kTma>(p, s, r, c_begin, c_end, nq, ents, phases);
   });
 }
 
-template <bool kTma>
+template <typename Codec, bool kVec4, bool kTma>
 cudaError_t launch_rows(const Params& p, const Config& c, int* scratch,
                         int device, cudaStream_t stream) {
   static int done_smem[64], occupancy[64];
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   int per_sm = 0;
   const cudaError_t err =
-      prepare((const void*)rowscan_scores_kernel<kTma>, c.smem,
+      prepare((const void*)rowscan_scores_kernel<Codec, kVec4, kTma>, c.smem,
               done_smem[device], occupancy[device], &per_sm);
   if (err != cudaSuccess) return err;
-  return launch_units(rowscan_scores_kernel<kTma>, per_sm, p, c, scratch,
-                      device, stream);
+  return launch_units(rowscan_scores_kernel<Codec, kVec4, kTma>, per_sm, p,
+                      c, scratch, device, stream);
+}
+
+// TMA needs 16-byte sizes and addresses: slots of a multiple of 16 bytes
+// on aligned bases (a float32 row at d % 4 == 0 always). Float32 takes the
+// float4 dots exactly when it takes TMA, so it has two variants.
+template <typename Codec>
+cudaError_t launch_codec(const Params& p, const Config& c, bool vec4,
+                         int* scratch, int device, cudaStream_t stream) {
+  const bool tma = vec4 && p.slot_bytes % 16 == 0;
+  if (tma) return launch_rows<Codec, true, true>(p, c, scratch, device,
+                                                 stream);
+  if constexpr (!std::is_same<Codec, F32>::value) {
+    if (vec4)
+      return launch_rows<Codec, true, false>(p, c, scratch, device, stream);
+  }
+  return launch_rows<Codec, false, false>(p, c, scratch, device, stream);
 }
 
 // ---- rowscan_dots
@@ -353,43 +393,59 @@ rowscan_dots_kernel(const float* __restrict__ db,
 }  // namespace
 
 // Ints of device scratch that rowscan_scores_launch needs for these shapes
-// (0: none, the direct mode), or -1 when its shared memory or worklist
-// would not fit.
+// and codec (0: none, the direct mode), or -1 when the codec does not pack
+// d or the shared memory or worklist would not fit.
 extern "C" long long rowscan_scores_scratch_ints(int n_rows, int row_cap,
-                                                 int d, long long n_work) {
-  return checked_scratch_ints(row_config(n_rows, row_cap, d, n_work), n_rows,
-                              n_work);
+                                                 int d, long long n_work,
+                                                 int codec) {
+  const int w = codec_slot_bytes(codec, d);
+  if (w <= 0) return -1;
+  return checked_scratch_ints(row_config(n_rows, row_cap, d, w, n_work),
+                              n_rows, n_work);
 }
 
 // Enqueues the row scan on `stream` (a cudaStream_t) of device `device`:
 // n_work = B * n_slots (query, row slot) entries; `scratch` holds
-// rowscan_scores_scratch_ints(...) ints (may be null when that is 0).
-// Returns the first CUDA error of the enqueued launches
-// (cudaGetLastError()): 0 on success. Does not synchronise.
-extern "C" int rowscan_scores_launch(const float* db, const float* db_sq,
+// rowscan_scores_scratch_ints(...) ints (may be null when that is 0); db
+// holds slots of the codec (worklist.cuh's CodecId), sq_scale and sq_bias
+// [d] the SQ codecs' range (else null). Returns the first CUDA error of the
+// enqueued launches (cudaGetLastError()): 0 on success. Does not
+// synchronise.
+extern "C" int rowscan_scores_launch(const void* db, const float* db_sq,
                                      const int* vec_ids, const int* row_sizes,
                                      const float* q, const float* q_sq,
                                      const int* rows, float* scores, int* ids,
-                                     int* scratch, long long n_work,
+                                     int* scratch, const float* sq_scale,
+                                     const float* sq_bias, long long n_work,
                                      int n_slots, int n_rows, int row_cap,
-                                     int d, int is_l2, int device,
+                                     int d, int is_l2, int codec, int device,
                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_work <= 0 || row_cap <= 0) return 0;
-  if (rowscan_scores_scratch_ints(n_rows, row_cap, d, n_work) < 0)
+  if (rowscan_scores_scratch_ints(n_rows, row_cap, d, n_work, codec) < 0)
     return (int)cudaErrorInvalidValue;
-  const Config c = row_config(n_rows, row_cap, d, n_work);
+  if (codec >= kCodecSQ8 && (sq_scale == nullptr || sq_bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Config c =
+      row_config(n_rows, row_cap, d, codec_slot_bytes(codec, d), n_work);
   if (!c.direct && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(db, db_sq, vec_ids, row_sizes, q, q_sq, rows,
-                               scores, ids, n_work, n_slots, n_rows, row_cap,
-                               d, is_l2, c);
-  // TMA's bulk copies take 16-byte aligned addresses and sizes
-  const bool tma = (d % 4 == 0) && ((uintptr_t)db % 16 == 0) &&
-                   ((uintptr_t)q % 16 == 0);
+  const Params p = make_params(db, sq_scale, sq_bias, db_sq, vec_ids,
+                               row_sizes, q, q_sq, rows, scores, ids, n_work,
+                               n_slots, n_rows, row_cap, d, is_l2, c);
+  const bool vec4 = vec4_dots(db, q, sq_scale, sq_bias, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = tma ? launch_rows<true>(p, c, scratch, device, s)
-            : launch_rows<false>(p, c, scratch, device, s);
+  switch (codec) {
+    case kCodecF32: err = launch_codec<F32>(p, c, vec4, scratch, device, s);
+      break;
+    case kCodecBF16: err = launch_codec<BF16>(p, c, vec4, scratch, device, s);
+      break;
+    case kCodecSQ8: err = launch_codec<SQ8>(p, c, vec4, scratch, device, s);
+      break;
+    case kCodecSQ4: err = launch_codec<SQ4>(p, c, vec4, scratch, device, s);
+      break;
+    default: err = launch_codec<SQ6>(p, c, vec4, scratch, device, s);
+  }
   return (int)err;
 }
 

@@ -19,10 +19,19 @@
 // is a valid result), inactive slots marked by list id -1, and no
 // n_slots % 8 rule.
 //
+// Storage codecs (worklist.cuh): db holds float32 or bfloat16 vectors, or
+// uint8 SQ8/SQ4/SQ6 codes with sq_scale and sq_bias; the XLA scan decodes a
+// gathered block before its einsum (auncel_tpu/index/scan.py:226), here the
+// ring stages the stored bytes and the dot units decode each element in
+// registers. A float32 tile is copied slot by slot, as before the codecs; a
+// coded tile is one contiguous run of bytes, copied with 16-byte cp.async
+// where its address allows, else 4-byte, else byte by byte.
+//
 // What bounds it: device-memory bandwidth. The least traffic is each
-// distinct probed list's live slots read once (d * 4 bytes of db plus norm
-// and id) and 8 bytes of output (score and id) written for every slot of
-// every (query, probe slot) row, live or dead. A query-major schedule (one
+// distinct probed list's live slots read once (the slot's stored bytes,
+// 4d for float32 and d for SQ8, plus norm and id) and 8 bytes of output
+// (score and id) written for every slot of every (query, probe slot) row,
+// live or dead. A query-major schedule (one
 // block per (query, probe slot, tile)) reads a list once per query probing
 // it: at the 1M index's window chunk about 9 times on average, 3.9 GB where
 // the bound needs 0.55 GB. This design is list-major:
@@ -63,6 +72,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "worklist.cuh"
 
 namespace {
@@ -70,17 +81,18 @@ namespace {
 constexpr int kTilesPerItem = 8;
 constexpr int kNormStages = 3;        // norms and ids live one step longer
 
-Config scan_config(int nlist, int cap, int d, long long n_work) {
-  Config c = make_config(nlist, cap, d, n_work, kTilesPerItem);
+Config scan_config(int nlist, int cap, int d, int slot_bytes,
+                   long long n_work) {
+  Config c = make_config(nlist, cap, d, slot_bytes, n_work, kTilesPerItem);
   // ring, queries, dots, norms and ids of the ring, q_sq and rows
-  c.smem = 4 * ((size_t)kStages * c.tile * d + (size_t)c.chunk * d +
-                (size_t)c.chunk * c.tile + 2 * kNormStages * c.tile +
-                2 * c.chunk);
+  c.smem = (size_t)kStages * c.stage_bytes +
+           4 * ((size_t)c.chunk * d + (size_t)c.chunk * c.tile +
+                2 * kNormStages * c.tile + 2 * c.chunk);
   return c;
 }
 
 struct Smem {
-  float* ring;    // [kStages][tile][d]
+  unsigned char* ring;  // [kStages][stage_bytes]: tile stored slots each
   float* qs;      // [chunk][d]
   float* dots;    // [chunk][tile]
   float* sq;      // [kNormStages][tile]
@@ -89,10 +101,10 @@ struct Smem {
   int* rows;      // [chunk]
 };
 
-__device__ __forceinline__ Smem carve(const Params& p, float* base) {
+__device__ __forceinline__ Smem carve(const Params& p, unsigned char* base) {
   Smem s;
   s.ring = base;
-  s.qs = s.ring + kStages * p.tile * p.d;
+  s.qs = reinterpret_cast<float*>(s.ring + kStages * p.stage_bytes);
   s.dots = s.qs + p.chunk * p.d;
   s.sq = s.dots + p.chunk * p.tile;
   s.vid = reinterpret_cast<int*>(s.sq + kNormStages * p.tile);
@@ -101,16 +113,22 @@ __device__ __forceinline__ Smem carve(const Params& p, float* base) {
   return s;
 }
 
-// Copies of tile t of the item (live slots only): vectors into ring stage
-// t % kStages, norms and ids into stage t % kNormStages.
-template <bool kVec4>
+// Copies of tile t of the item (live slots only): stored slots into ring
+// stage t % kStages, norms and ids into stage t % kNormStages.
+template <typename Codec, bool kVec4>
 __device__ __forceinline__ void issue_tile(const Params& p, const Smem& s,
                                            long long list_off, int c0,
                                            int n_live, int t) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* dst = s.ring + (t % kStages) * p.tile * p.d;
-  const float* src = p.db + (list_off + c0) * p.d;
-  if (kVec4) {
+  unsigned char* stage = s.ring + (t % kStages) * p.stage_bytes;
+  float* dst = reinterpret_cast<float*>(stage);
+  const float* src = static_cast<const float*>(p.db) + (list_off + c0) * p.d;
+  if constexpr (!std::is_same<Codec, F32>::value) {
+    copy_bytes(stage,
+               static_cast<const unsigned char*>(p.db) +
+                   (list_off + c0) * p.slot_bytes,
+               n_live * p.slot_bytes);
+  } else if (kVec4) {
     const int d4 = p.d >> 2;
     for (int r = warp; r < n_live; r += kWarps)
       for (int i = lane; i < d4; i += 32)
@@ -129,7 +147,7 @@ __device__ __forceinline__ void issue_tile(const Params& p, const Smem& s,
 
 // Scores and ids of list l's live slots [c_begin, c_end) for nq entries
 // (ents: b * n_slots + s), each slot read from device memory once.
-template <bool kVec4>
+template <typename Codec, bool kVec4>
 __device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
                           int c_end, int nq, const int* ents) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -139,7 +157,8 @@ __device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
   const int n_tiles = (c_end - c_begin + p.tile - 1) / p.tile;
   auto issue = [&](int t) {
     const int c0 = c_begin + t * p.tile;
-    issue_tile<kVec4>(p, s, list_off, c0, min(p.tile, c_end - c0), t);
+    issue_tile<Codec, kVec4>(p, s, list_off, c0, min(p.tile, c_end - c0),
+                             t);
   };
   // Two tiles in flight: tile t + 2's copy starts as soon as tile t's dots
   // are taken, under tile t's epilogue and tile t + 1's dots. One copy
@@ -175,8 +194,9 @@ __device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
     __syncthreads();
 
     // dots: units of 32 (slot, query) pairs, round robin over the warps
-    tile_dots<kVec4>(p, s.qs, s.dots, s.ring + (t % kStages) * p.tile * d,
-                     n_live, nq);
+    tile_dots<Codec, kVec4>(p, s.qs, s.dots,
+                            s.ring + (t % kStages) * p.stage_bytes, n_live,
+                            nq);
     __syncthreads();
     if (t + 2 < n_tiles) issue(t + 2);
     cp_async_commit();
@@ -207,67 +227,92 @@ __device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
   __syncthreads();  // the next item reuses the buffers
 }
 
-template <bool kVec4>
+template <typename Codec, bool kVec4>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_lists_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const Smem s = carve(p, smem);
   run_units(p, [&](int l, int c_begin, int c_end, int nq, const int* ents) {
-    scan_item<kVec4>(p, s, l, c_begin, c_end, nq, ents);
+    scan_item<Codec, kVec4>(p, s, l, c_begin, c_end, nq, ents);
   });
 }
 
-template <bool kVec4>
+template <typename Codec, bool kVec4>
 cudaError_t launch(const Params& p, const Config& c, int* scratch, int device,
                    cudaStream_t stream) {
   static int done_smem[64], occupancy[64];
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   int per_sm = 0;
   const cudaError_t err =
-      prepare((const void*)scan_lists_kernel<kVec4>, c.smem,
+      prepare((const void*)scan_lists_kernel<Codec, kVec4>, c.smem,
               done_smem[device], occupancy[device], &per_sm);
   if (err != cudaSuccess) return err;
-  return launch_units(scan_lists_kernel<kVec4>, per_sm, p, c, scratch, device,
-                      stream);
+  return launch_units(scan_lists_kernel<Codec, kVec4>, per_sm, p, c, scratch,
+                      device, stream);
+}
+
+template <typename Codec>
+cudaError_t launch_codec(const Params& p, const Config& c, bool vec4,
+                         int* scratch, int device, cudaStream_t stream) {
+  return vec4 ? launch<Codec, true>(p, c, scratch, device, stream)
+              : launch<Codec, false>(p, c, scratch, device, stream);
 }
 
 }  // namespace
 
-// Ints of device scratch that scan_scores_launch needs for these shapes (0:
-// none, the direct mode), or -1 when its shared memory or worklist would
-// not fit.
+// Ints of device scratch that scan_scores_launch needs for these shapes and
+// codec (0: none, the direct mode), or -1 when the codec does not pack d or
+// the shared memory or worklist would not fit.
 extern "C" long long scan_scores_scratch_ints(int nlist, int cap, int d,
-                                              long long n_work) {
-  return checked_scratch_ints(scan_config(nlist, cap, d, n_work), nlist,
+                                              long long n_work, int codec) {
+  const int w = codec_slot_bytes(codec, d);
+  if (w <= 0) return -1;
+  return checked_scratch_ints(scan_config(nlist, cap, d, w, n_work), nlist,
                               n_work);
 }
 
 // Enqueues the scan on `stream` (a cudaStream_t) of device `device`:
 // n_work = B * n_slots (query, probe slot) rows; `scratch` holds
-// scan_scores_scratch_ints(...) ints (may be null when that is 0). Returns
-// the first CUDA error of the enqueued launches (cudaGetLastError()): 0 on
-// success. Does not synchronise.
-extern "C" int scan_scores_launch(const float* db, const float* db_sq,
+// scan_scores_scratch_ints(...) ints (may be null when that is 0); db holds
+// slots of the codec (worklist.cuh's CodecId), sq_scale and sq_bias [d]
+// the SQ codecs' range (else null). Returns the first CUDA error of the
+// enqueued launches (cudaGetLastError()): 0 on success. Does not
+// synchronise.
+extern "C" int scan_scores_launch(const void* db, const float* db_sq,
                                   const int* vec_ids, const int* list_sizes,
                                   const float* q, const float* q_sq,
                                   const int* lists, float* scores, int* ids,
-                                  int* scratch, long long n_work, int n_slots,
-                                  int nlist, int cap, int d, int is_l2,
-                                  int device, void* stream) {
+                                  int* scratch, const float* sq_scale,
+                                  const float* sq_bias, long long n_work,
+                                  int n_slots, int nlist, int cap, int d,
+                                  int is_l2, int codec, int device,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_work <= 0 || cap <= 0) return 0;
-  if (scan_scores_scratch_ints(nlist, cap, d, n_work) < 0)
+  if (scan_scores_scratch_ints(nlist, cap, d, n_work, codec) < 0)
     return (int)cudaErrorInvalidValue;
-  const Config c = scan_config(nlist, cap, d, n_work);
+  const bool affine = codec >= kCodecSQ8;
+  if (affine && (sq_scale == nullptr || sq_bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Config c =
+      scan_config(nlist, cap, d, codec_slot_bytes(codec, d), n_work);
   if (!c.direct && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
-                               scores, ids, n_work, n_slots, nlist, cap, d,
-                               is_l2, c);
-  const bool vec4 = (d % 4 == 0) && ((uintptr_t)db % 16 == 0) &&
-                    ((uintptr_t)q % 16 == 0);
+  const Params p = make_params(db, sq_scale, sq_bias, db_sq, vec_ids,
+                               list_sizes, q, q_sq, lists, scores, ids,
+                               n_work, n_slots, nlist, cap, d, is_l2, c);
+  const bool vec4 = vec4_dots(db, q, sq_scale, sq_bias, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = vec4 ? launch<true>(p, c, scratch, device, s)
-             : launch<false>(p, c, scratch, device, s);
+  switch (codec) {
+    case kCodecF32: err = launch_codec<F32>(p, c, vec4, scratch, device, s);
+      break;
+    case kCodecBF16: err = launch_codec<BF16>(p, c, vec4, scratch, device, s);
+      break;
+    case kCodecSQ8: err = launch_codec<SQ8>(p, c, vec4, scratch, device, s);
+      break;
+    case kCodecSQ4: err = launch_codec<SQ4>(p, c, vec4, scratch, device, s);
+      break;
+    default: err = launch_codec<SQ6>(p, c, vec4, scratch, device, s);
+  }
   return (int)err;
 }

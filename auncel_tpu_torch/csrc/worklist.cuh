@@ -17,9 +17,20 @@
 // the items (list, span of slots, chunk of up to `chunk` entries) beside it;
 // no host sync); run_units, which hands a block its items from an atomic
 // counter, or in direct mode (at most one chunk of entries, no worklist)
-// groups the entries inside each block; the fp32 dots of a staged tile with
-// a chunk's queries (dot_units); and the fill units that write the dead
+// groups the entries inside each block; the storage codecs, which decode a
+// stored element in registers; the fp32 dots of a staged tile with a
+// chunk's queries (dot_units); and the fill units that write the dead
 // slots. Each scan brings its own way of staging a tile (scan_item).
+//
+// Storage codecs: db holds float32 or bfloat16 vectors, or uint8 scalar-
+// quantizer codes (SQ8: d bytes a slot; SQ4: d / 2, two dims a byte, low
+// nibble first; SQ6: 3d / 4, four dims in each little-endian 24-bit group)
+// with the affine decode x = code * sq_scale + sq_bias, a multiply then an
+// add, each rounded (no contraction into an FMA), so that a decoded element
+// is bitwise the plain version's. A ring stages a tile's stored bytes
+// (slot_bytes a slot) and the dot units decode while they read it; bf16
+// widens exactly. The dots, the norms (stored, of the decoded vectors) and
+// the epilogue are the same for every codec.
 
 #pragma once
 
@@ -40,23 +51,135 @@ constexpr int kMaxChunk = 32;
 constexpr int kFillRows = kWarps;     // (b, s) rows of one fill unit
 constexpr size_t kMaxSmem = 232448;   // sm_90 opt-in limit per block
 
+// ---- storage codecs (the ids are kernels/scan_scores.py's CODECS)
+
+enum CodecId { kCodecF32 = 0, kCodecBF16 = 1, kCodecSQ8 = 2, kCodecSQ4 = 3,
+               kCodecSQ6 = 4 };
+
+// Bytes of one stored slot of dimension d, or -1 for an unknown codec or a
+// width the codec does not pack.
+inline int codec_slot_bytes(int codec, int d) {
+  switch (codec) {
+    case kCodecF32: return 4 * d;
+    case kCodecBF16: return 2 * d;
+    case kCodecSQ8: return d;
+    case kCodecSQ4: return d % 2 == 0 ? d / 2 : -1;
+    case kCodecSQ6: return d % 4 == 0 ? 3 * d / 4 : -1;
+    default: return -1;
+  }
+}
+
+__device__ __forceinline__ float sq_affine(unsigned code, float scale,
+                                           float bias) {
+  return __fadd_rn(__fmul_rn((float)code, scale), bias);
+}
+
+__device__ __forceinline__ float4 sq_affine4(unsigned c0, unsigned c1,
+                                             unsigned c2, unsigned c3,
+                                             float4 s, float4 b) {
+  return make_float4(sq_affine(c0, s.x, b.x), sq_affine(c1, s.y, b.y),
+                     sq_affine(c2, s.z, b.z), sq_affine(c3, s.w, b.w));
+}
+
+// Each codec reads dims [4i, 4i + 4) (load4) or dim i (load1) of a staged
+// slot as floats; the SQ codecs take the dims' scale and bias (kAffine).
+struct F32 {
+  static constexpr bool kAffine = false;
+  __device__ static float4 load4(const unsigned char* x, int i, float4,
+                                 float4) {
+    return reinterpret_cast<const float4*>(x)[i];
+  }
+  __device__ static float load1(const unsigned char* x, int i, float,
+                                float) {
+    return reinterpret_cast<const float*>(x)[i];
+  }
+};
+
+struct BF16 {
+  static constexpr bool kAffine = false;
+  __device__ static float4 load4(const unsigned char* x, int i, float4,
+                                 float4) {
+    const uint2 w = reinterpret_cast<const uint2*>(x)[i];
+    return make_float4(__uint_as_float(w.x << 16),
+                       __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16),
+                       __uint_as_float(w.y & 0xffff0000u));
+  }
+  __device__ static float load1(const unsigned char* x, int i, float,
+                                float) {
+    return __uint_as_float(
+        (unsigned)reinterpret_cast<const unsigned short*>(x)[i] << 16);
+  }
+};
+
+struct SQ8 {
+  static constexpr bool kAffine = true;
+  __device__ static float4 load4(const unsigned char* x, int i, float4 s,
+                                 float4 b) {
+    const unsigned w = reinterpret_cast<const unsigned*>(x)[i];
+    return sq_affine4(w & 255u, (w >> 8) & 255u, (w >> 16) & 255u, w >> 24,
+                      s, b);
+  }
+  __device__ static float load1(const unsigned char* x, int i, float s,
+                                float b) {
+    return sq_affine(x[i], s, b);
+  }
+};
+
+struct SQ4 {
+  static constexpr bool kAffine = true;
+  __device__ static float4 load4(const unsigned char* x, int i, float4 s,
+                                 float4 b) {
+    const unsigned w = reinterpret_cast<const unsigned short*>(x)[i];
+    return sq_affine4(w & 15u, (w >> 4) & 15u, (w >> 8) & 15u, w >> 12, s,
+                      b);
+  }
+  __device__ static float load1(const unsigned char* x, int i, float s,
+                                float b) {
+    return sq_affine((x[i >> 1] >> (4 * (i & 1))) & 15u, s, b);
+  }
+};
+
+struct SQ6 {
+  static constexpr bool kAffine = true;
+  __device__ static unsigned group(const unsigned char* x, int g) {
+    const unsigned char* b = x + 3 * g;
+    return b[0] | ((unsigned)b[1] << 8) | ((unsigned)b[2] << 16);
+  }
+  __device__ static float4 load4(const unsigned char* x, int i, float4 s,
+                                 float4 b) {
+    const unsigned w = group(x, i);
+    return sq_affine4(w & 63u, (w >> 6) & 63u, (w >> 12) & 63u, w >> 18, s,
+                      b);
+  }
+  __device__ static float load1(const unsigned char* x, int i, float s,
+                                float b) {
+    return sq_affine((group(x, i >> 2) >> (6 * (i & 3))) & 63u, s, b);
+  }
+};
+
 struct Config {
   int tile;        // list slots per ring stage
   int chunk;       // entries (queries) per item
   int span;        // list slots per item
+  int slot_bytes;  // bytes of one stored slot
+  int stage_bytes; // bytes of one ring stage: tile slots, rounded to 16
   bool direct;     // n_work <= chunk: grouped in-block, no worklist
   size_t smem;     // dynamic shared memory per block (set by the scan)
   long long max_items;
 };
 
-// The tile, chunk, mode and item count for these shapes, with worklist
-// items of item_tiles tiles (0: a whole list each); the caller sets smem.
-Config make_config(int nlist, int cap, int d, long long n_work,
-                   int item_tiles) {
+// The tile, chunk, mode and item count for these shapes (slots of
+// slot_bytes bytes), with worklist items of item_tiles tiles (0: a whole
+// list each); the caller sets smem.
+Config make_config(int nlist, int cap, int d, int slot_bytes,
+                   long long n_work, int item_tiles) {
   Config c;
   // a multiple of 8 slots, at most 64, that lets the ring fit kRingBytes
-  const long long fit = kRingBytes / (4LL * kStages * d) / 8 * 8;
+  const long long fit = kRingBytes / ((long long)kStages * slot_bytes) / 8 * 8;
   c.tile = (int)(fit < 8 ? 8 : fit > 64 ? 64 : fit);
+  c.slot_bytes = slot_bytes;
+  c.stage_bytes = (c.tile * slot_bytes + 15) / 16 * 16;
   c.chunk = kMaxChunk;
   while (c.chunk > 4 && (long long)c.chunk * d * 4 > kQueryBytes)
     c.chunk >>= 1;
@@ -72,7 +195,9 @@ Config make_config(int nlist, int cap, int d, long long n_work,
 }
 
 struct Params {
-  const float* db;
+  const void* db;           // stored slots, slot_bytes each
+  const float* sq_scale;    // [d] (SQ codecs; else null)
+  const float* sq_bias;     // [d]
   const float* db_sq;
   const int* vec_ids;
   const int* list_sizes;
@@ -82,7 +207,7 @@ struct Params {
   float* scores;
   int* ids;
   int n_work, n_slots, nlist, cap, d, is_l2;
-  int tile, chunk, span;
+  int tile, chunk, span, slot_bytes, stage_bytes;
   int n_fill;       // fill units: kFillRows rows each
   int direct_ub;    // direct mode: blocks below it take a span, above fill
   // worklist (null in direct mode)
@@ -111,6 +236,27 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The block's threads copy `bytes` contiguous bytes from src into dst
+// (16-byte aligned): 16-byte cp.async when src is 16-byte aligned, else
+// 4-byte when it is 4-byte aligned, the tail and otherwise every byte with
+// plain loads and stores (visible to the block after its next barrier).
+__device__ __forceinline__ void copy_bytes(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int bytes) {
+  const unsigned a = (unsigned)reinterpret_cast<uintptr_t>(src);
+  const int g = (a & 15) == 0 ? 16 : (a & 3) == 0 ? 4 : 1;
+  const int body = g == 1 ? 0 : bytes / g * g;
+  if (g == 16) {
+    for (int i = 16 * threadIdx.x; i < body; i += 16 * kThreads)
+      cp_async16(dst + i, src + i);
+  } else if (g == 4) {
+    for (int i = 4 * threadIdx.x; i < body; i += 4 * kThreads)
+      cp_async4(dst + i, src + i);
+  }
+  for (int i = body + threadIdx.x; i < bytes; i += kThreads)
+    dst[i] = __ldg(src + i);
 }
 
 // One step of the reduce-scatter: the lane keeps the half of v[0, 2H) that
@@ -172,33 +318,42 @@ __device__ void fill_unit(const Params& p, int f) {
   }
 }
 
-// The dots of a staged tile's first n_live slots (ring, [tile][d]) with the
-// nq staged queries (qs, [chunk][d]), into dots ([chunk][tile]). A unit is
-// kSlots slots x 32 / kSlots queries, 32 dots that one reduce-scatter
-// finishes, one per lane; each lane holds its float4 (or float) of the
-// unit's queries and streams the slots past them.
-template <bool kVec4, int kSlots>
+// The dots of a staged tile's first n_live slots (ring: the tile's stored
+// slots, slot_bytes each, decoded by Codec) with the nq staged queries (qs,
+// [chunk][d]), into dots ([chunk][tile]). A unit is kSlots slots x 32 /
+// kSlots queries, 32 dots that one reduce-scatter finishes, one per lane;
+// each lane holds its float4 (or float) of the unit's queries and streams
+// the slots past them.
+template <typename Codec, bool kVec4, int kSlots>
 __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
-                                          float* dots, const float* ring,
+                                          float* dots,
+                                          const unsigned char* ring,
                                           int n_live, int nq) {
   constexpr int kQ = 32 / kSlots;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int d = p.d;
+  const int d = p.d, w = p.slot_bytes;
   const int n_sg = (n_live + kSlots - 1) / kSlots;
   const int n_qg = (nq + kQ - 1) / kQ;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   if constexpr (kVec4 && kSlots == 8) {
     if ((d >> 2) <= 32) {
       // d <= 128: a lane's part of a slot is one float4, so a warp keeps
-      // its 8 slots in registers and runs every query group past them
+      // its 8 slots in registers (decoded once) and runs every query group
+      // past them
       const bool has = lane < (d >> 2);
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 sc = zero, bi = zero;
+      if constexpr (Codec::kAffine) {
+        if (has) {
+          sc = __ldg(reinterpret_cast<const float4*>(p.sq_scale) + lane);
+          bi = __ldg(reinterpret_cast<const float4*>(p.sq_bias) + lane);
+        }
+      }
       for (int sg = warp; sg < n_sg; sg += kWarps) {
-        const float* xs = ring + sg * kSlots * d;
+        const unsigned char* xs = ring + sg * kSlots * w;
         float4 x[kSlots];
 #pragma unroll
         for (int j = 0; j < kSlots; ++j)
-          x[j] = has ? reinterpret_cast<const float4*>(xs + j * d)[lane]
-                     : zero;
+          x[j] = has ? Codec::load4(xs + j * w, lane, sc, bi) : zero;
         for (int qg = 0; qg < n_qg; ++qg) {
           float acc[32];
 #pragma unroll
@@ -224,7 +379,7 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
   }
   for (int u = warp; u < n_sg * n_qg; u += kWarps) {
     const int sg = u / n_qg, qg = u - sg * n_qg;
-    const float* xs = ring + sg * kSlots * d;
+    const unsigned char* xs = ring + sg * kSlots * w;
     const float* qv[kQ];
 #pragma unroll
     for (int k = 0; k < kQ; ++k) qv[k] = qs + min(qg * kQ + k, nq - 1) * d;
@@ -233,13 +388,18 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
     for (int m = 0; m < 32; ++m) acc[m] = 0.f;
     if (kVec4) {
       for (int i = lane; i < (d >> 2); i += 32) {
+        float4 sc = zero, bi = zero;
+        if constexpr (Codec::kAffine) {
+          sc = __ldg(reinterpret_cast<const float4*>(p.sq_scale) + i);
+          bi = __ldg(reinterpret_cast<const float4*>(p.sq_bias) + i);
+        }
         float4 v[kQ];
 #pragma unroll
         for (int k = 0; k < kQ; ++k)
           v[k] = reinterpret_cast<const float4*>(qv[k])[i];
 #pragma unroll
         for (int j = 0; j < kSlots; ++j) {
-          const float4 x = reinterpret_cast<const float4*>(xs + j * d)[i];
+          const float4 x = Codec::load4(xs + j * w, i, sc, bi);
 #pragma unroll
           for (int k = 0; k < kQ; ++k) {
             float a = acc[j * kQ + k];
@@ -253,12 +413,17 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
       }
     } else {
       for (int i = lane; i < d; i += 32) {
+        float sc = 0.f, bi = 0.f;
+        if constexpr (Codec::kAffine) {
+          sc = __ldg(p.sq_scale + i);
+          bi = __ldg(p.sq_bias + i);
+        }
         float v[kQ];
 #pragma unroll
         for (int k = 0; k < kQ; ++k) v[k] = qv[k][i];
 #pragma unroll
         for (int j = 0; j < kSlots; ++j) {
-          const float x = xs[j * d + i];
+          const float x = Codec::load1(xs + j * w, i, sc, bi);
 #pragma unroll
           for (int k = 0; k < kQ; ++k)
             acc[j * kQ + k] = fmaf(x, v[k], acc[j * kQ + k]);
@@ -273,16 +438,17 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
 
 // The dots of a staged tile, the unit's shape following the chunk so that
 // few (slot, query) pairs are padding.
-template <bool kVec4>
+template <typename Codec, bool kVec4>
 __device__ __forceinline__ void tile_dots(const Params& p, const float* qs,
-                                          float* dots, const float* ring,
+                                          float* dots,
+                                          const unsigned char* ring,
                                           int n_live, int nq) {
   if (nq == 1 && p.tile % 32 == 0)
-    dot_units<kVec4, 32>(p, qs, dots, ring, n_live, nq);
+    dot_units<Codec, kVec4, 32>(p, qs, dots, ring, n_live, nq);
   else if (nq <= 2 && p.tile % 16 == 0)
-    dot_units<kVec4, 16>(p, qs, dots, ring, n_live, nq);
+    dot_units<Codec, kVec4, 16>(p, qs, dots, ring, n_live, nq);
   else
-    dot_units<kVec4, 8>(p, qs, dots, ring, n_live, nq);
+    dot_units<Codec, kVec4, 8>(p, qs, dots, ring, n_live, nq);
 }
 
 // A block's share of the work. scan(l, c_begin, c_end, nq, ents) scores
@@ -546,14 +712,29 @@ cudaError_t launch_units(void (*kernel)(Params), int per_sm, Params p,
   return cudaGetLastError();
 }
 
+// Whether the dots read float4s of the staged slots and the queries: d %
+// 4 == 0 and db, q and (SQ codecs) the scale and bias 16-byte aligned. Both
+// scans decide alike, so that they round alike.
+inline bool vec4_dots(const void* db, const float* q, const float* sq_scale,
+                      const float* sq_bias, int d) {
+  auto aligned = [](const void* ptr) {
+    return ptr == nullptr || (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+  };
+  return d % 4 == 0 && aligned(db) && aligned(q) && aligned(sq_scale) &&
+         aligned(sq_bias);
+}
+
 // The Params of one launch (worklist fields unset).
-Params make_params(const float* db, const float* db_sq, const int* vec_ids,
-                   const int* list_sizes, const float* q, const float* q_sq,
-                   const int* lists, float* scores, int* ids,
-                   long long n_work, int n_slots, int nlist, int cap, int d,
-                   int is_l2, const Config& c) {
+Params make_params(const void* db, const float* sq_scale,
+                   const float* sq_bias, const float* db_sq,
+                   const int* vec_ids, const int* list_sizes, const float* q,
+                   const float* q_sq, const int* lists, float* scores,
+                   int* ids, long long n_work, int n_slots, int nlist,
+                   int cap, int d, int is_l2, const Config& c) {
   Params p = {};
   p.db = db;
+  p.sq_scale = sq_scale;
+  p.sq_bias = sq_bias;
   p.db_sq = db_sq;
   p.vec_ids = vec_ids;
   p.list_sizes = list_sizes;
@@ -571,6 +752,8 @@ Params make_params(const float* db, const float* db_sq, const int* vec_ids,
   p.tile = c.tile;
   p.chunk = c.chunk;
   p.span = c.span;
+  p.slot_bytes = c.slot_bytes;
+  p.stage_bytes = c.stage_bytes;
   return p;
 }
 

@@ -1,13 +1,17 @@
-"""IVF-Flat index (port of ``auncel_tpu/index/ivf.py``, float32 storage).
+"""IVF-Flat index (port of ``auncel_tpu/index/ivf.py``).
 
 Lists are packed into a padded ``[nlist, cap, d]`` tensor on ``device``
 (the card, ``"cuda"``, unless the caller passes another; cap = the largest
 list, rounded up to 8; pad slots carry id -1), which the padded engines
 scan, and ``enable_multirow`` keeps the tight row layout the multi-row
-engine scans.
-Not ported yet: the SQ/PQ/bf16 codecs, the IMI and HNSW coarse
-quantizers, the dense-scan crossover, ``max_codes``, reconstruction and
-updates; each raises ``NotImplementedError``.
+engine scans. Storage: "f32", "bf16", or the scalar quantizers "sq8",
+"sq4", "sq8u", "sq4u", "sq6" and "sq8d" (uint8 codes with a per-dimension
+affine range; every distance is on decoded values). Fixed-nprobe search
+takes the JAX package's routes: the dense crossover on the multi-row
+layout, and the ``max_codes`` budget on both layouts.
+Not ported yet: PQ storage, the IMI and HNSW coarse quantizers,
+reconstruction and updates; each raises ``NotImplementedError`` or is
+absent.
 """
 
 import numpy as np
@@ -15,14 +19,23 @@ import torch
 
 from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.device import resolve
+from auncel_tpu_torch.index.flat import (
+    sq_code_width, sq_encode, sq_pack, sq_train_range)
 from auncel_tpu_torch.index.scan import (
-    IVFArrays, coarse_rank, ivf_full_scan, scan_probe_range)
+    IVFArrays, ivf_full_scan, ivf_search_fixed)
 from auncel_tpu_torch.index.multirow import (
-    MultiRowArrays, build_multirow, multirow_search_fixed)
+    MultiRowArrays, build_multirow, multirow_dense_fixed,
+    multirow_search_fixed)
 from auncel_tpu_torch.ops.distance import (
     pairwise_ip, pairwise_l2sqr, pairwise_scores, sqnorms)
 from auncel_tpu_torch.ops.kmeans import KmeansParams, kmeans
-from auncel_tpu_torch.ops.topk import init_topk, topk_scores
+from auncel_tpu_torch.ops.sq import sq_decode_dev, sq_kind
+from auncel_tpu_torch.ops.topk import topk_scores
+
+# scalar-quantized storage codecs (reference ScalarQuantizer QT_* families,
+# IndexScalarQuantizer.h:34-41; "u" = one range for all dims, "d" = direct)
+SQ_STORAGE = ("sq8", "sq4", "sq8u", "sq4u", "sq6", "sq8d")
+STORAGE = ("f32", "bf16") + SQ_STORAGE
 
 
 def _round_up(x: int, m: int) -> int:
@@ -45,18 +58,41 @@ def compute_interdis(centroids: np.ndarray, metric: Metric,
 
 
 def _assign_topk(x: torch.Tensor, centroids: torch.Tensor,
-                 cent_sq: torch.Tensor, k: int, metric: Metric
-                 ) -> torch.Tensor:
-    """Top-k nearest centroids of every row, [n, k] int32."""
+                 cent_sq: torch.Tensor, k: int, metric: Metric,
+                 decode=None) -> torch.Tensor:
+    """Top-k nearest centroids of every row, [n, k] int32; ``decode``
+    maps a block of rows to the vectors assigned (SQ codes to their
+    decoded values)."""
     block = 65536
     nlist = centroids.shape[0]
     ids = torch.arange(nlist, dtype=torch.int32, device=x.device)
     out = []
     for i in range(0, x.shape[0], block):
-        s = pairwise_scores(x[i:i + block], centroids, metric,
-                            y_sqnorms=cent_sq)
+        xb = x[i:i + block] if decode is None else decode(x[i:i + block])
+        s = pairwise_scores(xb, centroids, metric, y_sqnorms=cent_sq)
         out.append(topk_scores(s, ids.expand(s.shape), k, metric)[1])
     return torch.cat(out)
+
+
+def _decoded_norms(arrays: IVFArrays, block: int = 1 << 22) -> torch.Tensor:
+    """Squared norms [nlist, cap] of the decoded stored vectors, a block of
+    lists at a time (the decoded corpus never exists whole), zero at
+    padding: the JAX package's ``_sq_norms_fused`` masked by id."""
+    nlist, cap = arrays.vec_ids.shape
+    step = max(1, block // max(cap, 1))
+    out = torch.cat([sqnorms(arrays.decode_block(arrays.db[i:i + step]))
+                     for i in range(0, nlist, step)])
+    return torch.where(arrays.vec_ids >= 0, out, 0.0)
+
+
+def preserve_sq_range(index) -> None:
+    """Pin the current affine SQ range on an index about to be rebuilt
+    from decoded vectors, so re-encoding reproduces the surviving codes
+    instead of training a shifted range. No-op for other storage."""
+    a = getattr(index, "_arrays", None)
+    if a is not None and a.sq_scale is not None:
+        index._sq_range_override = (a.sq_bias.cpu().numpy(),
+                                    a.sq_scale.cpu().numpy())
 
 
 class IVFFlatIndex:
@@ -65,13 +101,18 @@ class IVFFlatIndex:
     def __init__(self, d: int, nlist: int, metric: Metric = Metric.L2,
                  device="cuda", kmeans_params: KmeansParams | None = None,
                  cap_quantile: float = 1.0, storage: str = "f32",
-                 coarse: str = "kmeans"):
+                 coarse: str = "kmeans", sq_rangestat: str = "minmax",
+                 sq_rangestat_arg: float = 0.0):
         """``cap_quantile`` < 1 caps list capacity at that quantile of list
         sizes and spills the overflow (farthest from the centroid first) to
-        each vector's next-nearest list with room."""
-        if storage != "f32":
+        each vector's next-nearest list with room. ``storage`` is one of
+        ``STORAGE``; ``sq_rangestat``/``sq_rangestat_arg`` choose the SQ
+        range statistic (``index/flat.py::sq_train_range``)."""
+        if storage not in STORAGE:
             raise NotImplementedError(
-                f"storage {storage!r}: only 'f32' is ported")
+                f"storage {storage!r}: the port serves {STORAGE}")
+        if storage in SQ_STORAGE:
+            sq_code_width(d, storage)  # d divisibility check
         if coarse != "kmeans":
             raise NotImplementedError(
                 f"coarse quantizer {coarse!r}: only 'kmeans' is ported")
@@ -80,6 +121,16 @@ class IVFFlatIndex:
         self.metric = Metric.parse(metric)
         self.device = resolve(device)
         self.storage = storage
+        self.sq_rangestat = sq_rangestat
+        self.sq_rangestat_arg = float(sq_rangestat_arg)
+        self._sq_range_override = None   # (vmin, scale) kept across repacks
+        # the code-visit budget of fixed-nprobe search; 0 = unlimited
+        # (IndexIVF.h:69)
+        self.max_codes = 0
+        # the dense crossover of fixed-nprobe search on the multi-row layout
+        # (see search(); None disables, 0.0 forces)
+        self.dense_cut: float | None = 0.25
+        self.dense_batch_mult: float = 64.0
         self.kmeans_params = kmeans_params or KmeansParams()
         self.cap_quantile = cap_quantile
         self.is_trained = False
@@ -99,19 +150,26 @@ class IVFFlatIndex:
         """An index on given centroids, packed arrays and (optionally)
         multi-row layout, for example the JAX package's state carried over
         by ``convert``, so both packages compute on identical index state.
-        It shares the arrays' tensors and lives on their device. The stored
-        vectors stay queued too, so a later ``add`` repacks all."""
+        It shares the arrays' tensors and lives on their device, with the
+        arrays' storage codec. The stored vectors stay queued too, decoded,
+        and an SQ index keeps its range, so a later ``add`` re-encodes the
+        same codes."""
         nlist, d = np.asarray(centroids).shape
-        idx = cls(d, nlist, metric, device=arrays.db.device)
+        if arrays.sq_scale is not None:
+            storage = sq_kind(arrays.db.shape[-1], d)
+        else:
+            storage = "bf16" if arrays.db.dtype == torch.bfloat16 else "f32"
+        idx = cls(d, nlist, metric, device=arrays.db.device, storage=storage)
         idx.centroids = np.asarray(centroids, np.float32)
         idx.interdis = arrays.interdis.cpu().numpy()
         idx.is_trained = True
-        keep = (arrays.vec_ids >= 0).cpu().numpy()
-        x = arrays.db.cpu().numpy()[keep]
-        ids = arrays.vec_ids.cpu().numpy()[keep].astype(np.int64)
+        keep = arrays.vec_ids >= 0
+        x = arrays.decode_block(arrays.db[keep]).cpu().numpy()
+        ids = arrays.vec_ids[keep].cpu().numpy().astype(np.int64)
+        idx._arrays = arrays
+        preserve_sq_range(idx)
         idx._pending = [(x, ids)]
         idx._ntotal = int(ids.size)
-        idx._arrays = arrays
         if multirow is not None:
             idx._multirow = multirow
             idx._multirow_row_cap = multirow.rows.cap
@@ -165,10 +223,24 @@ class IVFFlatIndex:
         self._arrays = None
         self._multirow = None
 
+    def _sq_range(self, x: np.ndarray) -> tuple:
+        """(vmin, scale) [d] f32 of the SQ codec: the pinned range if one
+        is kept, the identity for sq8d (or no vectors), else trained on
+        ``x``."""
+        if self._sq_range_override is not None:
+            return self._sq_range_override
+        if self.storage == "sq8d" or not len(x):
+            return (np.zeros(self.d, np.float32),
+                    np.ones(self.d, np.float32))
+        return sq_train_range(x, self.storage, self.sq_rangestat,
+                              self.sq_rangestat_arg)
+
     def _pack(self) -> None:
         """Scatter the queued vectors into the padded [nlist, cap, d]
         layout; with cap_quantile < 1, spill overflow to next-nearest
-        lists."""
+        lists. SQ storage encodes on the host, as the JAX package does, and
+        assigns the decoded vectors; bf16 storage assigns the f32 vectors
+        and stores them rounded."""
         assert self.is_trained
         dev = self.device
         x = (np.concatenate([p[0] for p in self._pending], 0)
@@ -178,11 +250,24 @@ class IVFFlatIndex:
         n = x.shape[0]
         cents = torch.as_tensor(self.centroids, device=dev)
         cent_sq = sqnorms(cents)
-        xd = torch.as_tensor(x, device=dev)
+        sq = self.storage in SQ_STORAGE
+        decode = None
+        if sq:
+            vmin, scale = self._sq_range(x)
+            sq_scale = torch.as_tensor(scale, device=dev)
+            sq_bias = torch.as_tensor(vmin, device=dev)
+            codes = sq_encode(x, vmin, scale, self.storage)
+            xd = torch.as_tensor(codes, device=dev)
+
+            def decode(c):   # unpacked codes: the SQ8 decode
+                return sq_decode_dev(c, self.d, sq_scale, sq_bias)
+        else:
+            sq_scale = sq_bias = None
+            xd = torch.as_tensor(x, device=dev)
         spill = self.cap_quantile < 1.0 and n and self.nlist > 4
         n_choice = min(4 if spill else 1, self.nlist)
-        choices = (_assign_topk(xd, cents, cent_sq, n_choice, self.metric)
-                   .cpu().numpy().astype(np.int64) if n
+        choices = (_assign_topk(xd, cents, cent_sq, n_choice, self.metric,
+                                decode).cpu().numpy().astype(np.int64) if n
                    else np.zeros((0, 1), np.int64))
         assign = choices[:, 0].copy()
         sizes = np.bincount(assign, minlength=self.nlist).astype(np.int64)
@@ -223,18 +308,32 @@ class IVFFlatIndex:
             starts[:-1], sizes)
         vec_ids = np.full((self.nlist, cap), -1, np.int32)
         vec_ids[assign, slot] = vid.astype(np.int32)
-        db = torch.zeros((self.nlist, cap, self.d), dtype=torch.float32,
+        if sq:
+            xd = torch.as_tensor(sq_pack(codes, self.storage), device=dev)
+            dtype = torch.uint8
+        else:
+            dtype = (torch.bfloat16 if self.storage == "bf16"
+                     else torch.float32)
+        db = torch.zeros((self.nlist, cap, xd.shape[1]), dtype=dtype,
                          device=dev)
         if n:
             db[torch.as_tensor(assign, device=dev),
-               torch.as_tensor(slot, device=dev)] = xd
-        self._arrays = IVFArrays(
-            centroids=cents, cent_sq=cent_sq, db=db, db_sq=sqnorms(db),
+               torch.as_tensor(slot, device=dev)] = xd.to(dtype)
+        del xd
+        arrays = IVFArrays(
+            centroids=cents, cent_sq=cent_sq, db=db, db_sq=None,
             vec_ids=torch.as_tensor(vec_ids, device=dev),
             list_sizes=torch.as_tensor(sizes.astype(np.int32), device=dev),
             interdis=torch.as_tensor(
                 self.interdis if self.interdis is not None
-                else np.zeros((1, 1), np.float32), device=dev))
+                else np.zeros((1, 1), np.float32), device=dev),
+            sq_scale=sq_scale, sq_bias=sq_bias)
+        # f32: the stored vectors' norms (zero at padding, where the
+        # vectors are zero); otherwise the decoded values', zeroed at
+        # padding by id
+        self._arrays = arrays._replace(
+            db_sq=sqnorms(db) if dtype == torch.float32
+            else _decoded_norms(arrays))
 
     @property
     def arrays(self) -> IVFArrays:
@@ -271,27 +370,51 @@ class IVFFlatIndex:
                              f"{q.shape}")
         return torch.as_tensor(q, device=self.device)
 
+    def dense_route(self, batch: int, nprobe: int) -> bool:
+        """Whether fixed-nprobe search serves a batch of ``batch`` queries
+        at ``nprobe`` by the dense crossover, as the JAX package decides it
+        (``auncel_tpu/index/ivf.py:541-572``): on the multi-row layout,
+        without ``max_codes``, with at least 2048 rows unless ``dense_cut``
+        is 0.0 (which forces it), when the batch's rows, B x nprobe x
+        n_rows / nlist, reach dense_batch_mult x dense_cut x n_rows (one
+        shared pass costs about the same whatever the batch; gathers grow
+        with it). ``dense_cut`` None disables it."""
+        mr = self.multirow
+        if mr is None or self.dense_cut is None or self.max_codes:
+            return False
+        n_rows = mr.rows.db.shape[0]
+        if not self.dense_cut:
+            return True
+        est_rows = nprobe * (n_rows / self.nlist)
+        return (n_rows >= 2048 and batch * est_rows
+                >= self.dense_batch_mult * self.dense_cut * n_rows)
+
     def search(self, q: np.ndarray, k: int, nprobe: int | None = None):
         """Fixed-nprobe search: over the rows when the multi-row layout is
-        enabled, else over the padded lists. Returns numpy (D, I)."""
+        enabled (by the dense crossover when ``dense_route`` says so), else
+        over the padded lists; ``max_codes`` > 0 stops each query after
+        the ranked list that crosses that many codes. Returns numpy
+        (D, I)."""
         nprobe = min(int(nprobe if nprobe is not None else self.nprobe),
                      self.nlist)
         qt = self._q(q)
         mr = self.multirow
-        if mr is not None:
+        max_codes = int(self.max_codes)
+        if mr is not None and self.dense_route(qt.shape[0], nprobe):
+            vals, ids = multirow_dense_fixed(mr, qt, nprobe, k, self.metric)
+        elif mr is not None:
+            # the exact sum of the nprobe largest per-list row counts (the
+            # JAX package rounds it up to a power of two, a shape bucket;
+            # the per-query limit masks the rest)
             rpl = np.sort(mr.rows_per_list.cpu().numpy())[::-1]
             out_slots = int(rpl[:nprobe].sum())
-            vals, ids = multirow_search_fixed(mr, qt, k, nprobe, out_slots,
-                                              self.metric)
+            vals, ids = multirow_search_fixed(
+                mr, qt, k, nprobe, out_slots, self.metric,
+                code_sizes=self.arrays.list_sizes if max_codes else None,
+                max_codes=max_codes)
         else:
-            a = self.arrays
-            q_sq = sqnorms(qt)
-            _, cids = coarse_rank(a, qt, self.metric, q_sq=q_sq)
-            vals, ids = init_topk((qt.shape[0],), k, self.metric, qt.device)
-            limit = torch.full((qt.shape[0],), nprobe, dtype=torch.int32,
-                               device=qt.device)
-            vals, ids = scan_probe_range(a, qt, q_sq, cids, vals, ids, limit,
-                                         0, nprobe, self.metric)
+            vals, ids = ivf_search_fixed(self.arrays, qt, k, nprobe,
+                                         self.metric, max_codes)
         return vals.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
 
     def exact_search(self, q: np.ndarray, k: int, batch: int = 1024):

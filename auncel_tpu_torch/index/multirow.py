@@ -5,7 +5,9 @@ Each list is re-packed into ceil(size / row_cap) rows of a
 instead of one block padded to the largest list. The row tensor is a
 ``RowArrays``, an ``IVFArrays`` whose "lists" are rows and which the scan
 scores with K1; ``expand_probes`` maps each query's ranked list slots to
-ranked row slots.
+ranked row slots. The rows carry the padded layout's storage codec (stored
+bytes and SQ range copied as they are). ``multirow_dense_fixed`` serves a
+fixed-nprobe batch as one shared masked pass over the rows instead.
 """
 
 from typing import NamedTuple
@@ -15,7 +17,8 @@ import torch
 
 from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.index.scan import (
-    IVFArrays, RowArrays, check_f32_storage, coarse_rank, scan_probe_range)
+    IVFArrays, RowArrays, check_storage, coarse_rank, inverse_rank,
+    masked_full_scan, maxcodes_limit, scan_probe_range)
 from auncel_tpu_torch.ops.distance import sqnorms
 from auncel_tpu_torch.ops.topk import init_topk
 
@@ -37,8 +40,8 @@ def build_multirow(arrays: IVFArrays, row_cap: int | None = None
     """Re-pack a padded IVFArrays into rows. The host computes only the
     addressing tables; ``db``, ``db_sq`` and ``vec_ids`` are COPIED on the
     device with one flat gather each (never recomputed), so every distance
-    term is bitwise the padded layout's."""
-    check_f32_storage(arrays)
+    term is bitwise the padded layout's; the SQ range is carried over."""
+    check_storage(arrays)
     dev = arrays.db.device
     sizes = arrays.list_sizes.cpu().numpy().astype(np.int64)
     nlist, cap = arrays.vec_ids.shape
@@ -75,7 +78,8 @@ def build_multirow(arrays: IVFArrays, row_cap: int | None = None
         centroids=arrays.centroids, cent_sq=arrays.cent_sq, db=db,
         db_sq=db_sq, vec_ids=vec_ids,
         list_sizes=torch.as_tensor(row_sizes.astype(np.int32), device=dev),
-        interdis=arrays.interdis)
+        interdis=arrays.interdis, sq_scale=arrays.sq_scale,
+        sq_bias=arrays.sq_bias)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
@@ -112,16 +116,46 @@ def expand_probes(mr: MultiRowArrays, cids: torch.Tensor, n_slots: int,
     return out, offsets
 
 
+def multirow_dense_fixed(mr: MultiRowArrays, q: torch.Tensor, nprobe: int,
+                        k: int, metric: Metric, block_rows: int = 256,
+                        merge_blocks: int = 1):
+    """Fixed-nprobe search served by the dense crossover: one shared masked
+    pass over the rows instead of per-query row gathers (the reference's
+    distance_compute_blas_threshold switch, utils.cpp:538-622). The same
+    candidates as ``multirow_search_fixed``; the caller picks the route
+    from the batch's traffic (``IVFFlatIndex.search``)."""
+    B = q.shape[0]
+    q_sq = sqnorms(q)
+    _, cids = coarse_rank(mr.rows, q, metric, q_sq=q_sq)
+    nlist = mr.rows_per_list.shape[0]
+    target = torch.full((B,), min(max(int(nprobe), 1), nlist),
+                        dtype=torch.int32, device=q.device)
+    return masked_full_scan(mr.rows, mr.row_list, inverse_rank(cids, nlist),
+                            target, q, q_sq, k, metric, block_rows,
+                            merge_blocks)
+
+
 def multirow_search_fixed(mr: MultiRowArrays, q: torch.Tensor, k: int,
-                          nprobe: int, out_slots: int, metric: Metric):
+                          nprobe: int, out_slots: int, metric: Metric,
+                          code_sizes: torch.Tensor | None = None,
+                          max_codes: int = 0):
     """Fixed-nprobe search over the rows: the same candidates as a padded
     fixed-nprobe scan. ``out_slots`` must cover every query's expansion
-    (the sum of the ``nprobe`` largest per-list row counts does)."""
+    (the sum of the ``nprobe`` largest per-list row counts does). With
+    ``code_sizes`` (the [nlist] per-list code counts), ``max_codes`` > 0
+    applies the reference's code-visit budget (IndexIVF.h:69): a query
+    stops after the ranked list that crosses it, so its row budget is that
+    list prefix's rows."""
     B = q.shape[0]
     q_sq = sqnorms(q)
     _, cids = coarse_rank(mr.rows, q, metric, q_sq=q_sq)
     row_slots, offsets = expand_probes(mr, cids, nprobe, out_slots)
-    row_limit = offsets[:, nprobe - 1]
+    if code_sizes is not None:
+        g = maxcodes_limit(code_sizes[cids[:, :nprobe].long()], nprobe,
+                           max_codes)
+        row_limit = torch.gather(offsets, 1, (g - 1)[:, None].long())[:, 0]
+    else:
+        row_limit = offsets[:, nprobe - 1]
     # -1 padding clamps to row 0; those slots sit past row_limit and are
     # masked, so row 0 is never double-counted
     safe_rows = row_slots.clamp_min(0)

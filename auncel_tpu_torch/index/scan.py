@@ -18,13 +18,19 @@ list id -1 and read by neither.
 iff ``ik < limit[b]``, so a batch runs one shape while each query scans
 exactly its own lists.
 
+Storage codecs: ``db`` holds float32 vectors, bfloat16 vectors, or uint8
+scalar-quantizer codes (SQ8, SQ4 or SQ6 by the packed width) with the
+per-dimension affine decode ``x = code * sq_scale + sq_bias``. Every
+distance, and ``db_sq``, is on decoded values. The kernels decode inside
+the scan; the dense passes decode one block at a time
+(``IVFArrays.decode_block``). With bf16 storage the query is rounded to
+bf16 for the dot, as the JAX package rounds it, and ``q_sq`` stays the
+float32 query's. PQ storage is not ported.
+
 The dense passes (``masked_full_scan``, ``dense_stage_snapshots``) read the
 row corpus once for a whole batch with one fp32 matmul per block, masked by
 each list's coarse rank per query: the JAX package computes them with an
 XLA einsum, not a Pallas kernel.
-
-Only float32 storage is ported. The SQ, PQ-residual and polysemous branches
-of the JAX package raise ``NotImplementedError`` here.
 """
 
 from typing import NamedTuple
@@ -33,20 +39,25 @@ import torch
 
 from auncel_tpu_torch.types import Metric, worst_value
 from auncel_tpu_torch.ops.distance import pairwise_scores, sqnorms
+from auncel_tpu_torch.ops.sq import sq_decode_dev
 from auncel_tpu_torch.ops.topk import init_topk, topk_scores
 from auncel_tpu_torch.kernels.rowscan import rowscan_scores
 from auncel_tpu_torch.kernels.scan_scores import scan_scores
 
 
 class IVFArrays(NamedTuple):
-    """Device-resident IVF-Flat state: padded dense tensors, f32 storage."""
+    """Device-resident IVF-Flat state: padded dense tensors. ``db`` holds
+    float32 or bfloat16 vectors, or uint8 SQ codes with ``sq_scale`` and
+    ``sq_bias`` ([d] float32); ``db_sq`` the decoded norms."""
     centroids: torch.Tensor   # [nlist, d] float32
     cent_sq: torch.Tensor     # [nlist] float32
-    db: torch.Tensor          # [nlist, cap, d] float32
+    db: torch.Tensor          # [nlist, cap, d] f32/bf16, or [.., width] u8
     db_sq: torch.Tensor       # [nlist, cap] float32 stored norms (0 at pad)
     vec_ids: torch.Tensor     # [nlist, cap] int32, -1 at padding
     list_sizes: torch.Tensor  # [nlist] int32
     interdis: torch.Tensor    # [nlist, nlist] float32; L2: sqdist, IP: angle
+    sq_scale: torch.Tensor | None = None  # [d] float32 (SQ storage only)
+    sq_bias: torch.Tensor | None = None   # [d] float32 (SQ storage only)
 
     @property
     def nlist(self) -> int:
@@ -60,6 +71,20 @@ class IVFArrays(NamedTuple):
     def d(self) -> int:
         return self.centroids.shape[1]
 
+    def decode_block(self, sub: torch.Tensor) -> torch.Tensor:
+        """Stored block -> float32 vectors: the affine decode for SQ codes,
+        the exact widening for bf16, the block itself for f32."""
+        if self.sq_scale is not None:
+            return sq_decode_dev(sub, self.d, self.sq_scale, self.sq_bias)
+        return sub.to(torch.float32)
+
+    def scan_query(self, q: torch.Tensor) -> torch.Tensor:
+        """The query the dot takes: rounded to bf16 on bf16 storage (the
+        JAX package's ``q.astype(sub.dtype)``), else ``q`` itself."""
+        if self.db.dtype == torch.bfloat16:
+            return q.to(torch.bfloat16).to(torch.float32)
+        return q
+
 
 class RowArrays(IVFArrays):
     """The multi-row layout's row tensor (``index/multirow.py``): an
@@ -68,11 +93,15 @@ class RowArrays(IVFArrays):
     __slots__ = ()
 
 
-def check_f32_storage(arrays: IVFArrays) -> None:
-    if arrays.db.dtype != torch.float32:
+def check_storage(arrays: IVFArrays) -> None:
+    """Raise NotImplementedError on storage the port does not scan: uint8
+    codes without an SQ range are PQ codes, which are not ported."""
+    dtype = arrays.db.dtype
+    if dtype == torch.uint8 and arrays.sq_scale is None:
         raise NotImplementedError(
-            f"only float32 storage is ported (got {arrays.db.dtype}); the "
-            f"SQ/PQ/bf16 codecs are still to be ported")
+            "uint8 storage without sq_scale (PQ codes): PQ is not ported")
+    if dtype not in (torch.float32, torch.bfloat16, torch.uint8):
+        raise NotImplementedError(f"storage dtype {dtype} is not ported")
 
 
 def coarse_rank(arrays: IVFArrays, q: torch.Tensor, metric: Metric,
@@ -114,7 +143,7 @@ def scan_probe_range(
     ``start`` lets each query advance its own frontier. Padded lists are
     scored by K2 and the rows of a ``RowArrays`` by K1; neither reads a
     probe slot past the query's limit (passed as list id -1)."""
-    check_f32_storage(arrays)
+    check_storage(arrays)
     k = vals.shape[-1]
     B = q.shape[0]
     if width <= 0 or B == 0:
@@ -123,8 +152,10 @@ def scan_probe_range(
     C = probe_chunk or pick_probe_chunk(B, arrays.cap, width)
     n_slots_avail = probe_lists.shape[1]
     dev = q.device
-    q = q.contiguous()
+    q = arrays.scan_query(q).contiguous()
     start = torch.as_tensor(start, dtype=torch.int32, device=dev).expand(B)
+    codec = ({} if arrays.sq_scale is None else
+             {"sq_scale": arrays.sq_scale, "sq_bias": arrays.sq_bias})
     for c0 in range(0, width, C):
         Cc = min(C, width - c0)
         iks = start[:, None] + c0 + torch.arange(Cc, dtype=torch.int32,
@@ -136,7 +167,7 @@ def scan_probe_range(
         lists = torch.where(iks < limit[:, None], lists, -1).to(torch.int32)
         scores, sub_ids = (rowscan_scores if rows else scan_scores)(
             arrays.db, arrays.db_sq, arrays.vec_ids, arrays.list_sizes, q,
-            q_sq, lists, metric)
+            q_sq, lists, metric, **codec)
         vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
                                 torch.cat([ids, sub_ids], dim=-1), k, metric)
     return vals, ids
@@ -146,18 +177,21 @@ def ivf_full_scan(arrays: IVFArrays, q: torch.Tensor, k: int,
                   metric: Metric):
     """Exact full scan (nprobe = nlist) without per-query gathers: each
     block of lists is read once for the whole batch and contracted with one
-    fp32 matmul, then merged exactly. Its dot values match K1's within the
-    kscaling tolerance (the same f32 products, summed in another order)."""
-    check_f32_storage(arrays)
+    fp32 matmul on the block's decoded vectors, then merged exactly. Its
+    dot values match K1's within the kscaling tolerance (the same f32
+    products, summed in another order)."""
+    check_storage(arrays)
     B = q.shape[0]
-    nlist, cap, d = arrays.db.shape
+    nlist, cap = arrays.vec_ids.shape
+    d = arrays.d
     worst = worst_value(metric)
     q_sq = sqnorms(q)
+    q = arrays.scan_query(q)
     C = max(1, min(nlist, CHUNK_SLOTS // max(B * cap, 1)))
     vals, ids = init_topk((B,), k, metric, q.device)
     for l0 in range(0, nlist, C):
         l1 = min(l0 + C, nlist)
-        blk = arrays.db[l0:l1].reshape(-1, d)
+        blk = arrays.decode_block(arrays.db[l0:l1]).reshape(-1, d)
         dots = (q @ blk.T).reshape(B, l1 - l0, cap)
         if metric is Metric.L2:
             scores = (q_sq[:, None, None] + arrays.db_sq[l0:l1][None]
@@ -186,11 +220,12 @@ def inverse_rank(cids: torch.Tensor, nlist: int) -> torch.Tensor:
 def _block_scores(rows: RowArrays, row_list, inv_rank, q, q_sq, s: int,
                   e: int, metric: Metric):
     """Scores [B, n, row_cap] of rows [s, e) against every query (one fp32
-    matmul, the JAX package's einsum outside any Pallas kernel), their
-    lists' per-query ranks [B, n] and the rows' live-slot mask [n, row_cap]."""
+    matmul on the decoded block, the JAX package's einsum outside any Pallas
+    kernel), their lists' per-query ranks [B, n] and the rows' live-slot
+    mask [n, row_cap]."""
     B, d = q.shape
-    blk = rows.db[s:e]
-    dots = (q @ blk.reshape(-1, d).T).reshape(B, e - s, -1)
+    blk = rows.decode_block(rows.db[s:e])
+    dots = (rows.scan_query(q) @ blk.reshape(-1, d).T).reshape(B, e - s, -1)
     if metric is Metric.L2:
         scores = (q_sq[:, None, None] + rows.db_sq[s:e][None]
                   - 2.0 * dots).clamp_min(0.0)
@@ -218,7 +253,7 @@ def masked_full_scan(rows: RowArrays, row_list: torch.Tensor,
     no candidate in its window beats any query's current k-th (exact: the
     skipped candidates lose to every kept one). One host sync per merge
     window. Returns (vals [B, k], ids)."""
-    check_f32_storage(rows)
+    check_storage(rows)
     B = q.shape[0]
     R = rows.vec_ids.shape[0]
     worst = worst_value(metric)
@@ -257,7 +292,7 @@ def dense_stage_snapshots(rows: RowArrays, row_list: torch.Tensor,
     a cumulative union after the pass give every stage. A bucket's merge is
     skipped when no candidate of the block beats any query's k-th in it
     (one host sync per block)."""
-    check_f32_storage(rows)
+    check_storage(rows)
     B = q.shape[0]
     R = rows.vec_ids.shape[0]
     worst = worst_value(metric)
@@ -293,3 +328,32 @@ def dense_stage_snapshots(rows: RowArrays, row_list: torch.Tensor,
                          largest=not lower, sorted=True).values
         outs.append(run)
     return torch.stack(outs, dim=1)
+
+
+def maxcodes_limit(sizes: torch.Tensor, nprobe: int, max_codes: int
+                   ) -> torch.Tensor:
+    """Per-query probe limit [B] int32 under a code-visit budget: the
+    reference scans list ik, then breaks once ``nscan >= max_codes``
+    (IndexIVF.cpp:539-541), so a query scans 1 + #(strict prefix sums <
+    max_codes) lists, at most nprobe. ``sizes`` [B, nprobe] are the probed
+    lists' code counts in rank order; ``max_codes`` 0 disables."""
+    if max_codes <= 0:
+        return torch.full(sizes.shape[:1], nprobe, dtype=torch.int32,
+                          device=sizes.device)
+    cum = torch.cumsum(sizes, dim=1)
+    return ((cum < max_codes).sum(1) + 1).clamp_max(nprobe).to(torch.int32)
+
+
+def ivf_search_fixed(arrays: IVFArrays, q: torch.Tensor, k: int,
+                     nprobe: int, metric: Metric, max_codes: int = 0):
+    """Fixed-nprobe search over the padded lists: (vals [B, k], ids [B, k])
+    best-first. ``max_codes`` > 0 stops each query after the ranked list
+    that crosses the code budget (IndexIVF.h:69)."""
+    B = q.shape[0]
+    q_sq = sqnorms(q)
+    _, cids = coarse_rank(arrays, q, metric, q_sq=q_sq)
+    vals, ids = init_topk((B,), k, metric, q.device)
+    limit = maxcodes_limit(arrays.list_sizes[cids[:, :nprobe].long()],
+                           nprobe, max_codes)
+    return scan_probe_range(arrays, q, q_sq, cids, vals, ids, limit, 0,
+                            nprobe, metric)

@@ -13,12 +13,14 @@ together with the score assembly and masks its caller runs
 (``auncel_tpu/index/scan.py:249-268``). It is bound by device-memory
 bandwidth, and row-grouped: the live entries are grouped by row on the
 device, inactive entries read nothing, and each row is read once per chunk
-of up to 32 of the queries that probe it, through a TMA-fed ring.
+of up to 32 of the queries that probe it, through a TMA-fed ring. It takes
+K2's storage codecs (float32, bfloat16, and uint8 SQ8/SQ4/SQ6 codes with
+``sq_scale`` and ``sq_bias``), decoded in registers as K2 decodes them.
 
 ``rowscan_dots`` is the first, query-major port: the TPU kernel's own
 contract ``dots[t, c] = <db[work_rows[t], c, :], qs[t]>`` without its
-``T % 16`` rule; it reads a row once for every entry. Nothing on the
-serving paths calls it.
+``T % 16`` rule, float32 storage only; it reads a row once for every
+entry. Nothing on the serving paths calls it.
 
 Each runs its kernel for CUDA tensors and its plain version (``*_ref``)
 for CPU tensors. A CUDA tensor never falls back: the kernel launches or the
@@ -44,25 +46,30 @@ MAX_T = 2**31 - 1         # grid.x limit
 
 
 def rowscan_scores_ref(db, db_sq, vec_ids, row_sizes, q, q_sq, rows,
-                       metric: Metric):
+                       metric: Metric, sq_scale=None, sq_bias=None):
     """Plain PyTorch version: K2's, rows being lists."""
     return scan_scores_ref(db, db_sq, vec_ids, row_sizes, q, q_sq, rows,
-                           metric)
+                           metric, sq_scale, sq_bias)
 
 
 def rowscan_scores(db: torch.Tensor, db_sq: torch.Tensor,
                    vec_ids: torch.Tensor, row_sizes: torch.Tensor,
                    q: torch.Tensor, q_sq: torch.Tensor, rows: torch.Tensor,
-                   metric: Metric):
-    """Rows ``db [n_rows, row_cap, d]`` f32 with their ``db_sq``,
-    ``vec_ids`` and ``row_sizes``, queries ``q [B, d]`` f32 with ``q_sq``,
-    row slots ``rows [B, n_slots]`` int32 (-1: inactive) -> (scores
-    ``[B, n_slots * row_cap]`` f32, ids ``[B, n_slots * row_cap]`` int32)."""
+                   metric: Metric, sq_scale: torch.Tensor | None = None,
+                   sq_bias: torch.Tensor | None = None):
+    """Rows ``db [n_rows, row_cap, d]`` f32 or bf16 (or ``[n_rows, row_cap,
+    width]`` uint8 SQ codes with ``sq_scale`` and ``sq_bias`` [d] f32) with
+    their ``db_sq``, ``vec_ids`` and ``row_sizes``, queries ``q [B, d]``
+    f32 with ``q_sq``, row slots ``rows [B, n_slots]`` int32 (-1:
+    inactive) -> (scores ``[B, n_slots * row_cap]`` f32, ids
+    ``[B, n_slots * row_cap]`` int32)."""
     args = (db, db_sq, vec_ids, row_sizes, q, q_sq, rows)
-    if check_scan_args("rowscan_scores", args, metric):
-        return rowscan_scores_ref(*args, metric)
+    on_cpu, codec = check_scan_args("rowscan_scores", args, metric, sq_scale,
+                                    sq_bias)
+    if on_cpu:
+        return rowscan_scores_ref(*args, metric, sq_scale, sq_bias)
     scores, ids, launched = launch_scan("rowscan_scores", _library(), args,
-                                        metric)
+                                        metric, codec, sq_scale, sq_bias)
     rowscan_scores.launches += launched
     return scores, ids
 

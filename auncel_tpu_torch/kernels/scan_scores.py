@@ -18,6 +18,14 @@ list-major: the probes are grouped by list on the device, and each probed
 list's live slots are read once per chunk of up to 32 of the queries that
 probe it; see the source.
 
+Storage codecs: ``db`` may hold float32 or bfloat16 vectors, or uint8
+scalar-quantizer codes with ``sq_scale`` and ``sq_bias`` ([d] float32),
+SQ8, SQ4 or SQ6 by the packed width as ``ops/sq.py::sq_decode_dev``
+decides it. The kernel stages the stored bytes and decodes each element in
+registers, a multiply then an add, each rounded, so a decoded element is
+bitwise the plain version's; ``db_sq`` holds the decoded norms, and ``q``
+is taken as given (the caller rounds it to bf16 for bf16 storage).
+
 ``scan_scores`` runs the kernel for CUDA tensors and the plain version,
 ``scan_scores_ref``, for CPU tensors. A CUDA tensor never falls back: the
 kernel launches or the wrapper raises. ``scan_scores.launches`` counts the
@@ -33,6 +41,7 @@ import functools
 import torch
 
 from auncel_tpu_torch.kernels import build
+from auncel_tpu_torch.ops.sq import sq_decode_dev, sq_kind
 from auncel_tpu_torch.types import Metric, worst_value
 
 # a block's shared memory holds at least two 8-slot tiles of the list and
@@ -40,16 +49,31 @@ from auncel_tpu_torch.types import Metric, worst_value
 MAX_D = 2880
 MAX_CAP = 2**31 - 1       # slot indices are int32
 MAX_WORK = 2**31 - 1      # entry indices are int32
+# the plain version decodes and contracts this many elements at a time
+REF_CHUNK = 1 << 26
+
+# the kernels' codec ids (csrc/worklist.cuh)
+CODECS = {"f32": 0, "bf16": 1, "sq8": 2, "sq4": 3, "sq6": 4}
 
 
 def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
-                    metric: Metric):
-    """Plain PyTorch version: the gather, dot and masks of the XLA scan."""
+                    metric: Metric, sq_scale=None, sq_bias=None):
+    """Plain PyTorch version: the gather, decode, dot and masks of the XLA
+    scan, a bounded number of (query, probe slot) entries at a time."""
     B, S = lists.shape
     nlist, cap, _ = db.shape
+    d = q.shape[1]
     flat = lists.reshape(-1).long().clamp(0, nlist - 1)
-    dots = torch.einsum("tcd,td->tc", db[flat],
-                        q.repeat_interleave(S, dim=0)).reshape(B, S, cap)
+    qe = q.repeat_interleave(S, dim=0)
+    step = max(1, REF_CHUNK // max(cap * d, 1))
+    parts = []
+    for t0 in range(0, B * S, step):
+        sub = db[flat[t0:t0 + step]]
+        x = (sq_decode_dev(sub, d, sq_scale, sq_bias) if sq_scale is not None
+             else sub.to(torch.float32))
+        parts.append(torch.einsum("tcd,td->tc", x, qe[t0:t0 + step]))
+    dots = (torch.cat(parts) if parts else torch.zeros(
+        (0, cap), dtype=torch.float32, device=db.device)).reshape(B, S, cap)
     sel = flat.reshape(B, S)
     if metric is Metric.L2:
         scores = (q_sq[:, None, None] + db_sq[sel] - 2.0 * dots).clamp_min(0.0)
@@ -68,60 +92,93 @@ def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
 _ARG_NAMES = ("db", "db_sq", "vec_ids", "list_sizes", "q", "q_sq", "lists")
 
 
-def check_scan_args(name: str, args: tuple, metric) -> bool:
+def scan_codec(name: str, db: torch.Tensor, d: int, sq_scale, sq_bias
+               ) -> int:
+    """The kernels' codec id of ``db`` (``CODECS``) at query width ``d``;
+    raises on a storage the scan does not take."""
+    if db.dtype != torch.uint8:
+        if db.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} takes float32, bfloat16 or uint8 db, "
+                            f"got {db.dtype}")
+        if sq_scale is not None or sq_bias is not None:
+            raise ValueError(f"{name}: sq_scale and sq_bias go with uint8 "
+                             f"db")
+        if db.shape[-1] != d:
+            raise ValueError(f"{name}: db's width {db.shape[-1]} is not the "
+                             f"queries' {d}")
+        return CODECS["f32" if db.dtype == torch.float32 else "bf16"]
+    kind = sq_kind(db.shape[-1], d)
+    if sq_scale is None or sq_bias is None or kind is None:
+        raise ValueError(
+            f"{name}: uint8 db needs sq_scale and sq_bias and a packed width "
+            f"of d, d/2 or 3d/4 bytes (d={d}, width {db.shape[-1]})")
+    for arg, t in (("sq_scale", sq_scale), ("sq_bias", sq_bias)):
+        if t.dtype != torch.float32 or t.shape != (d,):
+            raise ValueError(f"{name} takes float32 {arg} [{d}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return CODECS[kind]
+
+
+def check_scan_args(name: str, args: tuple, metric, sq_scale=None,
+                    sq_bias=None) -> tuple:
     """Check the contract K2 and K1's ``rowscan_scores`` share (K1's lists
-    are rows). True when every tensor lies on the CPU, where the plain
-    version runs; False when they lie on one CUDA device; raises otherwise
-    (a tensor elsewhere never takes the plain version)."""
+    are rows): (whether every tensor lies on the CPU, where the plain
+    version runs, or else on one CUDA device; the codec id). Raises
+    otherwise: a tensor elsewhere never takes the plain version."""
     if not isinstance(metric, Metric):
         raise TypeError(f"{name} takes a Metric, got {metric!r}")
-    dtypes = (torch.float32, torch.float32, torch.int32, torch.int32,
+    dtypes = (None, torch.float32, torch.int32, torch.int32,
               torch.float32, torch.float32, torch.int32)
     for arg, t, dtype in zip(_ARG_NAMES, args, dtypes):
-        if t.dtype != dtype:
+        if dtype is not None and t.dtype != dtype:
             raise TypeError(f"{name} takes {dtype} {arg}, got {t.dtype}")
     db, db_sq, vec_ids, list_sizes, q, q_sq, lists = args
     if db.dim() != 3 or q.dim() != 2 or lists.dim() != 2:
-        raise ValueError(f"{name} takes db [nlist, cap, d], q [B, d] and "
-                         f"lists [B, n_slots]")
-    nlist, cap, d = db.shape
-    B = q.shape[0]
+        raise ValueError(f"{name} takes db [nlist, cap, width], q [B, d] "
+                         f"and lists [B, n_slots]")
+    nlist, cap, _ = db.shape
+    B, d = q.shape
     if (db_sq.shape != (nlist, cap) or vec_ids.shape != (nlist, cap)
-            or list_sizes.shape != (nlist,) or q.shape[1] != d
-            or q_sq.shape != (B,) or lists.shape[0] != B):
+            or list_sizes.shape != (nlist,) or q_sq.shape != (B,)
+            or lists.shape[0] != B):
         raise ValueError(f"{name}: shape mismatch: " + ", ".join(
             f"{arg} {tuple(t.shape)}" for arg, t in zip(_ARG_NAMES, args)))
+    codec = scan_codec(name, db, d, sq_scale, sq_bias)
     if nlist == 0:
         raise ValueError(f"{name} needs at least one list")
-    devices = {t.device for t in args}
+    tensors = args if sq_scale is None else args + (sq_scale, sq_bias)
+    devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
-        return True
+        return True, codec
     if len(devices) != 1 or db.device.type != "cuda":
         raise ValueError(f"{name} needs all tensors on one CUDA device or "
                          f"all on the CPU, got {devices}")
-    if not all(t.is_contiguous() for t in args):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous tensors")
     B, S = lists.shape
     if not 1 <= d <= MAX_D or cap > MAX_CAP or B * S > MAX_WORK:
         raise ValueError(f"{name} supports 1 <= d <= {MAX_D}, cap <= "
                          f"{MAX_CAP} and B * n_slots <= {MAX_WORK}, got "
                          f"d={d} cap={cap} B*n_slots={B * S}")
-    return False
+    return False, codec
 
 
-def launch_scan(name: str, lib, args: tuple, metric):
+def launch_scan(name: str, lib, args: tuple, metric, codec: int = 0,
+                sq_scale=None, sq_bias=None):
     """Enqueue ``lib``'s ``{name}_launch`` (with its worklist scratch) on
     the args' CUDA device and current stream: (scores, ids, whether a
     kernel was launched)."""
     db, db_sq, vec_ids, list_sizes, q, q_sq, lists = args
-    nlist, cap, d = db.shape
+    nlist, cap, _ = db.shape
     B, S = lists.shape
+    d = q.shape[1]
     scores = torch.empty((B, S * cap), dtype=torch.float32, device=db.device)
     ids = torch.empty((B, S * cap), dtype=torch.int32, device=db.device)
     if B * S == 0 or cap == 0:
         return scores, ids, False
     # the worklist's scratch (none up to one chunk of entries)
-    n_scratch = getattr(lib, f"{name}_scratch_ints")(nlist, cap, d, B * S)
+    n_scratch = getattr(lib, f"{name}_scratch_ints")(nlist, cap, d, B * S,
+                                                     codec)
     if n_scratch < 0:
         raise ValueError(f"{name}: the worklist for B * n_slots = {B * S} "
                          f"over cap {cap} does not fit int32")
@@ -134,8 +191,10 @@ def launch_scan(name: str, lib, args: tuple, metric):
         db.data_ptr(), db_sq.data_ptr(), vec_ids.data_ptr(),
         list_sizes.data_ptr(), q.data_ptr(), q_sq.data_ptr(),
         lists.data_ptr(), scores.data_ptr(), ids.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), B * S, S, nlist,
-        cap, d, int(metric is Metric.L2), db.device.index,
+        None if scratch is None else scratch.data_ptr(),
+        None if sq_scale is None else sq_scale.data_ptr(),
+        None if sq_bias is None else sq_bias.data_ptr(), B * S, S, nlist,
+        cap, d, int(metric is Metric.L2), codec, db.device.index,
         torch.cuda.current_stream(db.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -144,16 +203,22 @@ def launch_scan(name: str, lib, args: tuple, metric):
 
 def scan_scores(db: torch.Tensor, db_sq: torch.Tensor, vec_ids: torch.Tensor,
                 list_sizes: torch.Tensor, q: torch.Tensor, q_sq: torch.Tensor,
-                lists: torch.Tensor, metric: Metric):
-    """Padded lists ``db [nlist, cap, d]`` f32 with their ``db_sq``,
-    ``vec_ids`` and ``list_sizes``, queries ``q [B, d]`` f32 with ``q_sq``,
-    probes ``lists [B, n_slots]`` int32 (-1: inactive) -> (scores
-    ``[B, n_slots * cap]`` f32, ids ``[B, n_slots * cap]`` int32)."""
+                lists: torch.Tensor, metric: Metric,
+                sq_scale: torch.Tensor | None = None,
+                sq_bias: torch.Tensor | None = None):
+    """Padded lists ``db [nlist, cap, d]`` f32 or bf16 (or ``[nlist, cap,
+    width]`` uint8 SQ codes with ``sq_scale`` and ``sq_bias`` [d] f32) with
+    their ``db_sq``, ``vec_ids`` and ``list_sizes``, queries ``q [B, d]``
+    f32 with ``q_sq``, probes ``lists [B, n_slots]`` int32 (-1: inactive)
+    -> (scores ``[B, n_slots * cap]`` f32, ids ``[B, n_slots * cap]``
+    int32)."""
     args = (db, db_sq, vec_ids, list_sizes, q, q_sq, lists)
-    if check_scan_args("scan_scores", args, metric):
-        return scan_scores_ref(*args, metric)
+    on_cpu, codec = check_scan_args("scan_scores", args, metric, sq_scale,
+                                    sq_bias)
+    if on_cpu:
+        return scan_scores_ref(*args, metric, sq_scale, sq_bias)
     scores, ids, launched = launch_scan("scan_scores", _library(), args,
-                                        metric)
+                                        metric, codec, sq_scale, sq_bias)
     scan_scores.launches += launched
     return scores, ids
 
@@ -166,12 +231,13 @@ def bind_scan(lib, name: str):
     ``{name}_launch``."""
     fn = getattr(lib, f"{name}_scratch_ints")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong]
+                   ctypes.c_longlong, ctypes.c_int]
     fn.restype = ctypes.c_longlong
     fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 

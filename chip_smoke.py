@@ -7,8 +7,10 @@ each kernel against its plain PyTorch version on synthetic inputs: K1's
 rowscan_scores at the bench, one-shot tail-round and batch-1 worklists,
 timed in turns with the dots route it replaced (rowscan_dots and the score
 assembly as separate passes), K2 over the same rows and the plain version,
-and rowscan_dots alone; the bounded-search main path on the multi-row
-layout (K1 in search, K2 in profile training): calibration with its
+and rowscan_dots alone; K1 and K2 on each storage codec (bf16, SQ8, SQ4,
+SQ6) at the bench shapes ([k1 CODEC], [k2 CODEC]); the bounded-search
+main path on the multi-row layout (K1 in search, K2 in profile
+training): calibration with its
 measured dense crossover, the held-out window through the one-shot engine
 and batch-1 windows, then
   [oneshot]        the 0.9 window, one-shot against the wave engine, K1
@@ -30,27 +32,38 @@ throughout, with the two-phase window held to single phase on a strict
 window whose stragglers take phase B, and time_search at batch 1); each
 kernel against its plain version on the index's own arrays, K2 at the
 shapes the main path gives it (the window's waves, a training chunk, batch
-1 and one list probed by every query). Every path is driven through the
-port's public entry points on their default device, with the kernels'
-launch counts set to 0 just before it and read just after (the launches
-that compare K1 with other routes are not counted). Exits non-zero
+1 and one list probed by every query); then
+  [sq8 10M]        the JAX package's headline configuration, synthDeep10M
+                   (10M x 96) with IVF1024 + SQ8 storage, built on the
+                   card: profile training (K2 on the codes), calibration
+                   on 2000 disjoint queries, the 1000 held-out queries as
+                   one window (worst-case recall@10 >= 0.9 or the run
+                   fails) and 200 at batch 1 (K1 on the row codes), fixed-
+                   nprobe search on the dense route against the gathers
+                   and with max_codes, and K1 and K2 on the codes at
+                   worklists recorded from this path.
+Every path is driven through the port's public entry points on their
+default device, with the kernels' launch counts set to 0 just before it
+and read just after (the launches that compare K1 with other routes are
+not counted). Exits non-zero
 when there is no CUDA device or any phase fails. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel.
 
     python3 chip_smoke.py [--profile DIR]
 
 ``--profile DIR`` also writes torch.profiler tables of one batched and one
-batch-1 search on each path, of the 0.9 and the strict window through the
-one-shot and the wave engine, of the strict window through the one-shot
-engine with its row scans on the dots route, and of one two-phase and one
-single-phase run of the phase-B window.
+batch-1 search on each path (the 10M one too), of the 0.9 and the strict
+window through the one-shot and the wave engine, of the strict window
+through the one-shot engine with its row scans on the dots route, and of
+one two-phase and one single-phase run of the phase-B window.
 
     python3 chip_smoke.py --kernels
 
-builds and checks the kernels on synthetic inputs and on the index's own
-arrays, prints their ``[k1]``/``[k1 dots]``/``[k2]`` lines and stops: no
-serving path, no JSON lines. It times whichever ``auncel_tpu_torch`` is
-first on ``sys.path``, so run from another tree's root with
+builds and checks the kernels on synthetic inputs and on the 1M index's
+own arrays, prints their ``[k1]``/``[k1 dots]``/``[k2]`` (and codec) lines
+and stops: no serving path, no 10M phase, no JSON lines. It times
+whichever ``auncel_tpu_torch`` is first on ``sys.path``, so run from
+another tree's root with
 ``python3 -c "import runpy, sys; sys.argv = ['chip_smoke.py', '--kernels'];
 runpy.run_path('PATH/chip_smoke.py', run_name='__main__')"`` it times that
 tree's kernels on the same shapes.
@@ -131,17 +144,19 @@ def k1_bound(db, rows, qs) -> tuple:
 
 def k2_work(db, db_sq, vec_ids, list_sizes, q, q_sq, lists) -> dict:
     """What K2's inputs need: the live slots of each distinct probed list
-    read once (vector, norm, id) with the list sizes, probes and queries;
-    scores and ids written for every slot. Also the live bytes the kernel
-    reads, once per (query, probe slot)."""
-    nlist, cap, d = db.shape
+    read once (the stored vector at its codec's width: 4d bytes for f32, d
+    for SQ8; norm; id) with the list sizes, probes and queries; scores and
+    ids written for every slot. Also the live bytes the kernel reads, once
+    per (query, probe slot)."""
+    nlist, cap, width = db.shape
+    d = q.shape[1]
     B, S = lists.shape
     active = lists[lists >= 0].long().clamp_max(nlist - 1)
     sizes = list_sizes.long().clamp(0, cap)
     distinct = torch.unique(active)
     live_distinct = int(sizes[distinct].sum())
     live_probed = int(sizes[active].sum())
-    slot_bytes = d * 4 + 4 + 4
+    slot_bytes = width * db.element_size() + 4 + 4
     out_bytes = B * S * cap * 8
     n_bytes = (live_distinct * slot_bytes + distinct.numel() * 4
                + B * S * 4 + B * d * 4 + B * 4 + out_bytes)
@@ -250,19 +265,24 @@ def time_routes(routes: dict, reps: int) -> dict:
 
 
 def k1_compare(name, args, metric, card: str, reps: int = 20,
-               terms_tol: bool = False) -> dict:
+               terms_tol: bool = False, codec: dict | None = None,
+               label: str = "k1") -> dict:
     """rowscan_scores against its plain version on one input set (ids and
     dead slots equal; scores within rtol = atol = 1e-5, or with
     ``terms_tol`` within 1e-5 of q_sq + db_sq, as k2_compare), timed in
-    turns with the dots route, K2 over the same rows and the plain version;
-    returns its numbers."""
+    turns with the dots route (float32 storage only), K2 over the same
+    rows (bitwise equal) and the plain version; returns its numbers.
+    ``codec``: the SQ range (sq_scale, sq_bias) of uint8 storage."""
     from auncel_tpu_torch.kernels.rowscan import (
         rowscan_scores, rowscan_scores_ref)
     from auncel_tpu_torch.kernels.scan_scores import scan_scores
-    routes = {"kernel": lambda: rowscan_scores(*args, metric),
+    cd = codec or {}
+    routes = {"kernel": lambda: rowscan_scores(*args, metric, **cd),
               "dots route": lambda: dots_route(*args, metric),
-              "K2 on rows": lambda: scan_scores(*args, metric),
-              "plain": lambda: rowscan_scores_ref(*args, metric)}
+              "K2 on rows": lambda: scan_scores(*args, metric, **cd),
+              "plain": lambda: rowscan_scores_ref(*args, metric, **cd)}
+    if args[0].dtype != torch.float32:
+        del routes["dots route"]
     got_s, got_i = routes["kernel"]()
     want_s, want_i = routes["plain"]()
     torch.cuda.synchronize()
@@ -283,24 +303,31 @@ def k1_compare(name, args, metric, card: str, reps: int = 20,
     else:
         torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
         tol = "rtol = atol = 1e-5"
-    for other in ("dots route", "K2 on rows"):
-        check(torch.equal(routes[other]()[1], got_i),
-              f"K1 {name}: the {other} gives other ids")
-    del got_s, got_i, want_s, want_i, diff, fin
+    k2_s, k2_i = routes["K2 on rows"]()
+    check(torch.equal(k2_s, got_s) and torch.equal(k2_i, got_i),
+          f"K1 {name}: K2 over the same rows differs")
+    if "dots route" in routes:
+        check(torch.equal(routes["dots route"]()[1], got_i),
+              f"K1 {name}: the dots route gives other ids")
+    del got_s, got_i, want_s, want_i, diff, fin, k2_s, k2_i
     t = time_routes(routes, reps)
+    t.setdefault("dots route", float("nan"))   # float32 storage only
     t_dev = device_ms(routes["kernel"], 10)
     work = k2_work(*args)
     live = rows >= 0
     distinct = int(torch.unique(
         rows[live].clamp_max(db.shape[0] - 1)).numel())
     pct = 100 * work["bound_ms"] / t["kernel"]
-    log(f"[k1] {name}: B={rows.shape[0]} n_slots={rows.shape[1]} row_cap="
-        f"{db.shape[1]} d={db.shape[2]} {metric.name} live share "
+    log(f"[{label}] {name}: B={rows.shape[0]} n_slots={rows.shape[1]} "
+        f"row_cap={db.shape[1]} d={args[4].shape[1]} {metric.name} "
+        f"{db.dtype} live share "
         f"{float(live.float().mean()) if live.numel() else 0.0:.3f} distinct "
         f"live rows {distinct} max_abs_err={err:.3g} ({tol}); kernel "
         f"{t['kernel']:.4f} ms ({pct:.1f} % of the bound; device time a call "
         + ("not measured" if t_dev is None else f"{t_dev:.4f} ms")
-        + f"), dots route {t['dots route']:.4f} ms, K2 on rows "
+        + "), dots route " + (f"{t['dots route']:.4f} ms"
+                              if "dots route" in routes else "f32 only")
+        + f", K2 on rows "
         f"{t['K2 on rows']:.4f} ms, plain {t['plain']:.4f} ms; bound "
         f"{work['bound_ms']:.4f} ms ({work['bound_by']}, "
         f"{work['bound_bytes'] / 1e9:.3f} GB: each distinct live row read "
@@ -327,16 +354,19 @@ def k1_check(device, card: str) -> dict:
 
 
 def k2_compare(name, args, metric, card: str, reps: int = 20,
-               terms_tol: bool = False) -> dict:
+               terms_tol: bool = False, codec: dict | None = None,
+               label: str = "k2") -> dict:
     """K2 against its plain version on one input set; returns its numbers.
     With ``terms_tol`` the L2 tolerance is 1e-5 of the score's terms
     (q_sq + db_sq) rather than of the score: on data of SIFT's scale a
     near neighbour's score is the difference of terms ~60x larger than it,
-    and the two versions' dots differ in sum order."""
+    and the two versions' dots differ in sum order. ``codec``: the SQ
+    range (sq_scale, sq_bias) of uint8 storage."""
     from auncel_tpu_torch.kernels.scan_scores import (
         scan_scores, scan_scores_ref)
-    got_s, got_i = scan_scores(*args, metric)
-    want_s, want_i = scan_scores_ref(*args, metric)
+    cd = codec or {}
+    got_s, got_i = scan_scores(*args, metric, **cd)
+    want_s, want_i = scan_scores_ref(*args, metric, **cd)
     torch.cuda.synchronize()
     check(torch.equal(got_i, want_i), f"K2 {name}: ids differ")
     check(torch.equal(torch.isfinite(got_s), torch.isfinite(want_s)),
@@ -357,30 +387,33 @@ def k2_compare(name, args, metric, card: str, reps: int = 20,
         tol = "1e-5 of q_sq + db_sq"
         # how far each fp32 version is from the same function in float64,
         # on the first queries: the difference above is their two errors
-        n = min(32, B)
-        dots = torch.einsum("bscd,bd->bsc", db[sel[:n]].double(),
+        n = max(1, min(32, B, (1 << 26) // max(S * db.shape[1] * q.shape[1],
+                                                1)))
+        dots = torch.einsum("bscd,bd->bsc",
+                            decoded(db[sel[:n]], q.shape[1], cd).double(),
                             q[:n].double())
         exact = (q_sq[:n, None, None].double() + db_sq[sel[:n]].double()
                  - 2.0 * dots).clamp_min(0.0).reshape(n, -1)
         f = fin[:n]
         e_k = float((got_s[:n] - exact)[f].abs().max())
         e_p = float((want_s[:n] - exact)[f].abs().max())
-        log(f"[k2] {name}: against float64 on {n} queries: kernel max abs "
-            f"err {e_k:.3g}, plain {e_p:.3g}; largest score "
+        log(f"[{label}] {name}: against float64 on {n} queries: kernel "
+            f"max abs err {e_k:.3g}, plain {e_p:.3g}; largest score "
             f"{float(exact[f].max()):.4g}")
         del dots, exact
     else:
         torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
         tol = "rtol = atol = 1e-5"
     del got_s, got_i, want_s, want_i
-    t_k, t_ref = time_pair(lambda: scan_scores(*args, metric),
-                           lambda: scan_scores_ref(*args, metric), reps)
-    t_dev = device_ms(lambda: scan_scores(*args, metric), 20)
+    t_k, t_ref = time_pair(lambda: scan_scores(*args, metric, **cd),
+                           lambda: scan_scores_ref(*args, metric, **cd), reps)
+    t_dev = device_ms(lambda: scan_scores(*args, metric, **cd), 20)
     dev = "not measured" if t_dev is None else f"{t_dev:.4f} ms"
     work = k2_work(*args)
     B, S = args[6].shape
-    log(f"[k2] {name}: B={B} n_slots={S} cap={args[0].shape[1]} "
-        f"d={args[0].shape[2]} {metric.name} max_abs_err={err:.3g} max rel "
+    log(f"[{label}] {name}: B={B} n_slots={S} cap={args[0].shape[1]} "
+        f"d={args[4].shape[1]} {metric.name} {args[0].dtype} "
+        f"max_abs_err={err:.3g} max rel "
         f"err={rel:.3g} ({tol}) kernel {t_k:.4f} ms "
         f"({work['bound_bytes'] / t_k / 1e6:.1f} GB/s of the bound's bytes; "
         f"{work['live_bytes'] / t_k / 1e6:.1f} GB/s of live bytes, once per "
@@ -439,6 +472,72 @@ def k2_check(device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def decoded(x, d: int, codec: dict) -> torch.Tensor:
+    """Stored vectors as float32: the plain SQ decode with ``codec``'s
+    range, the exact widening of bf16, float32 as it is."""
+    from auncel_tpu_torch.ops.sq import sq_decode_dev
+    if codec:
+        return sq_decode_dev(x, d, codec["sq_scale"], codec["sq_bias"])
+    return x.float()
+
+
+def coded(args, codec: str, seed: int) -> tuple:
+    """A synthetic layout's vectors stored in ``codec``: (args, the SQ range
+    as wrapper keywords or {}). bf16 rounds the vectors; the SQ codecs
+    quantize them on a per-dimension min-max range, as the index does, and
+    pack them. Stored norms are the decoded vectors', zero at dead
+    slots."""
+    from auncel_tpu_torch.index.flat import (
+        sq_encode, sq_pack, sq_train_range)
+    args = list(args)
+    db, vec_ids = args[0], args[2]
+    nlist, cap, d = db.shape
+    if codec == "bf16":
+        args[0] = db.to(torch.bfloat16)
+        cd = {}
+    else:
+        x = db.reshape(-1, d).cpu().numpy()
+        gen = np.random.RandomState(seed)
+        vmin, scale = sq_train_range(x[gen.rand(x.shape[0]) < 0.05], codec)
+        packed = sq_pack(sq_encode(x, vmin, scale, codec), codec)
+        args[0] = torch.as_tensor(packed, device=db.device).reshape(
+            nlist, cap, -1)
+        cd = {"sq_scale": torch.as_tensor(scale, device=db.device),
+              "sq_bias": torch.as_tensor(vmin, device=db.device)}
+    x = decoded(args[0], d, cd)
+    args[1] = torch.where(vec_ids >= 0, (x * x).sum(-1), 0.0)
+    return tuple(args), cd
+
+
+CODECS = ("bf16", "sq8", "sq4", "sq6")
+
+
+def codec_check(device, card: str) -> dict:
+    """Each storage codec of K1 and K2 against the plain versions at the
+    bench shapes (K1: 1024 x 4 row slots of rows 256 x 128; K2: 256 x 5
+    probes of lists 1024 x 128): the [k1 CODEC] and [k2 CODEC] lines.
+    Returns each (kernel, codec)'s numbers."""
+    from auncel_tpu_torch import Metric
+    out = {}
+    for codec in CODECS:
+        name, *shape = K1_ROW_SHAPES[0]
+        args, cd = coded(synthetic_padded(device, *shape, seed=3, full=0.9,
+                                          drop=0.0), codec, seed=3)
+        out[("rowscan_scores", codec)] = k1_compare(
+            f"{name} L2", args, Metric.L2, card, codec=cd,
+            label=f"k1 {codec}")
+        del args
+        name, *shape = K2_SHAPES[0]
+        args, cd = coded(synthetic_padded(device, *shape, seed=2), codec,
+                         seed=2)
+        out[("scan_scores", codec)] = k2_compare(
+            f"{name} L2", args, Metric.L2, card, codec=cd,
+            label=f"k2 {codec}")
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 # The benchmark configuration (bench.py): a synthetic SIFT-like corpus,
 # IVF1024,Flat, recall@10 >= 0.9 per query, 1000 queries to train and
 # calibrate the profile and 1000 held-out queries to serve.
@@ -489,22 +588,23 @@ def uncounted():
 
 
 @contextlib.contextmanager
-def row_scans_through(fn):
-    """The serving path's row scans (index/scan.py's rowscan_scores) go
-    through fn(real, *args) instead."""
+def scans_through(fn, name: str = "rowscan_scores"):
+    """The serving path's row scans (index/scan.py's rowscan_scores), or
+    with ``name`` "scan_scores" its padded-list scans, go through
+    fn(real, *args, **codec) instead."""
     import auncel_tpu_torch.index.scan as scan
-    real = scan.rowscan_scores
-    scan.rowscan_scores = lambda *args: fn(real, *args)
+    real = getattr(scan, name)
+    setattr(scan, name, lambda *args, **kw: fn(real, *args, **kw))
     try:
         yield
     finally:
-        scan.rowscan_scores = real
+        setattr(scan, name, real)
 
 
 def on_dots_route(fn):
     """fn with the serving path's row scans on the dots route."""
     def run():
-        with row_scans_through(lambda real, *args: dots_route(*args)):
+        with scans_through(lambda real, *args: dots_route(*args)):
             return fn()
     return run
 
@@ -535,24 +635,28 @@ def engine_stage() -> str:
     return "wave"
 
 
-def record_row_scans(fn) -> list:
-    """Run fn and return the inputs of every row scan it made, as (engine
-    stage, args, metric): queries, norms and row slots copied, the index's
-    tensors by reference."""
+def record_row_scans(fn, name: str = "rowscan_scores") -> list:
+    """Run fn and return the inputs of every row scan it made (with
+    ``name`` "scan_scores", of every padded-list scan), as (engine stage,
+    args, metric, codec keywords): queries, norms and row slots copied, the
+    index's tensors by reference."""
     calls = []
 
-    def record(real, db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric):
+    def record(real, db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric,
+               **kw):
         calls.append((engine_stage(), (db, db_sq, vec_ids, row_sizes,
                                        q.clone(), q_sq.clone(), rows.clone()),
-                      metric))
-        return real(db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric)
+                      metric, kw))
+        return real(db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric,
+                    **kw)
 
-    with row_scans_through(record):
+    with scans_through(record, name):
         fn()
     return calls
 
 
-def k1_recorded(label: str, calls: list, card: str) -> dict:
+def k1_recorded(label: str, calls: list, card: str,
+                tag: str = "k1") -> dict:
     """K1 at the worklists a window's row scans gave it: each call checked
     against the plain version (within 1e-5 of q_sq + db_sq) and timed in
     turns with the dots route, K2 on the same rows and the plain version;
@@ -562,17 +666,22 @@ def k1_recorded(label: str, calls: list, card: str) -> dict:
     from auncel_tpu_torch.kernels.scan_scores import scan_scores
     tot = {"ms": 0.0, "dots_ms": 0.0, "k2_ms": 0.0, "plain_ms": 0.0,
            "bound_ms": 0.0}
-    for i, (stage, args, metric) in enumerate(calls):
+    for i, (stage, args, metric, kw) in enumerate(calls):
         res = k1_compare(f"{label}, call {i + 1} of {len(calls)} ({stage})",
-                         args, metric, card, reps=10, terms_tol=True)
+                         args, metric, card, reps=10, terms_tol=True,
+                         codec=kw, label=tag)
         for k in tot:
             tot[k] += res[k]
     dev = {}
-    for name, fn in (("kernel", rowscan_scores), ("dots route", dots_route),
-                     ("K2 on rows", scan_scores)):
-        t = device_ms(lambda: [fn(*a, m) for _, a, m in calls], 3)
+    routes = (("kernel", rowscan_scores), ("dots route", dots_route),
+              ("K2 on rows", scan_scores))
+    for name, fn in routes:
+        if name == "dots route" and calls and calls[0][3]:
+            dev[name] = "f32 only"
+            continue
+        t = device_ms(lambda: [fn(*a, m, **kw) for _, a, m, kw in calls], 3)
         dev[name] = "not measured" if t is None else f"{t:.3f} ms"
-    log(f"[k1] {label}, all {len(calls)} row scans: kernel {tot['ms']:.3f} "
+    log(f"[{tag}] {label}, all {len(calls)} row scans: kernel {tot['ms']:.3f} "
         f"ms ({100 * tot['bound_ms'] / tot['ms']:.1f} % of the summed bound "
         f"{tot['bound_ms']:.3f} ms), dots route {tot['dots_ms']:.3f} ms, K2 "
         f"on rows {tot['k2_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms; "
@@ -589,16 +698,19 @@ def counted(fn):
     return out, {k: v - before[k] for k, v in launch_counts().items()}
 
 
-def serve_window(es, gt_D, card: str, label: str) -> dict:
-    """The 1000 held-out queries as one window, escalating the multipler
-    if the bound is missed, then the median of warm repeats."""
+def serve_window(es, gt_D, card: str, label: str,
+                 start: int = N_TRAIN_Q) -> dict:
+    """The 1000 held-out queries from ``start`` as one window, escalating
+    the multipler if the bound is missed, then the median of warm
+    repeats."""
     from auncel_tpu_torch import Metric
     from auncel_tpu_torch.autotune import recall_counts
 
     def serve():
         ((D_out, I_out), dt), n = counted(
-            lambda: synced(lambda: es.search(N_TRAIN_Q, N_TEST_Q)))
-        cnt = recall_counts(D_out, gt_D[N_TRAIN_Q:], K, Metric.L2)
+            lambda: synced(lambda: es.search(start, N_TEST_Q)))
+        cnt = recall_counts(D_out, gt_D[start:start + N_TEST_Q], K,
+                            Metric.L2)
         return D_out, I_out, dt, cnt, n
 
     D_out, I_out, dt, cnt, n = serve()
@@ -618,33 +730,36 @@ def serve_window(es, gt_D, card: str, label: str) -> dict:
           f"{label}: non-finite distances or missing ids")
     min_recall = cnt.min() / K
     check(min_recall >= 1.0 - EPS, f"{label}: worst-case recall {min_recall}")
-    nscan = es.n_scanned[N_TRAIN_Q:N_TRAIN_Q + N_TEST_Q]
+    nscan = es.n_scanned[start:start + N_TEST_Q]
     log(f"[{label}] {N_TEST_Q} held-out queries: worst recall@{K}="
         f"{min_recall:.3f} mean={cnt.mean() / K:.4f} mean n_scanned="
         f"{nscan.mean():.2f} max={nscan.max()} multipler="
         f"{es.multipler:.3f} std_m={es.std_m} qps={N_TEST_Q / dt:.1f} "
         f"({dt * 1e3:.1f} ms) launches={n} [{card}]")
-    return {"seconds": dt, "launches": n}
+    return {"seconds": dt, "launches": n, "min_recall": min_recall,
+            "mean_n_scanned": float(nscan.mean())}
 
 
-def serve_batch1(es, n_queries: int, card: str, label: str) -> dict:
-    """Each of the first ``n_queries`` held-out queries alone."""
+def serve_batch1(es, n_queries: int, card: str, label: str,
+                 start: int = N_TRAIN_Q) -> dict:
+    """Each of the first ``n_queries`` held-out queries (from ``start``)
+    alone."""
     lat = []
     total = {}
     for i in range(n_queries):
         ((Dq, _), t), n = counted(
-            lambda: synced(lambda: es.search(N_TRAIN_Q + i, 1)))
+            lambda: synced(lambda: es.search(start + i, 1)))
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
         check(Dq.shape == (1, K) and np.isfinite(Dq).all(),
-              f"{label}: batch-1 result of query {N_TRAIN_Q + i}")
+              f"{label}: batch-1 result of query {start + i}")
         lat.append(t * 1e3)
     lat = np.asarray(lat)
     log(f"[{label}] batch-1 over {n_queries} held-out queries: p50="
         f"{np.percentile(lat, 50):.2f} ms p90={np.percentile(lat, 90):.2f} "
         f"ms p99={np.percentile(lat, 99):.2f} ms max={lat.max():.2f} ms "
         f"mean={lat.mean():.2f} ms mean n_scanned="
-        f"{es.n_scanned[N_TRAIN_Q:N_TRAIN_Q + n_queries].mean():.2f} "
+        f"{es.n_scanned[start:start + n_queries].mean():.2f} "
         f"launches={total} [{card}]")
     return total
 
@@ -1241,6 +1356,191 @@ def kernels_on_index(c: dict, device, card: str) -> dict:
     return out
 
 
+# The JAX package's headline configuration, synthDeep10M with SQ8 storage
+# (README.md "synthDeep10M"; auncel_tpu/eval_harness/common.py:52-77,
+# :103-170), as ``python -m auncel_tpu.eval_harness.bound synthDeep10M 3000
+# 1000 10 0.10 --storage sq8 --profile-size 1000`` serves it: profile on
+# queries [0, 1000), calibration on [1000, 3000), the 1000 queries
+# [3000, 4000) held out and served.
+NB10M, D10M, NQ10M = 10_000_000, 96, 10_000
+PROFILE10M, CAL10M, START10M = 1000, 2000, 3000
+N_LATENCY10M = 200
+FIXED_NPROBE10M, MAX_CODES10M = 32, 30_000
+
+
+def build_10m(card: str) -> dict:
+    """The synthDeep10M data, its IVF1024 + SQ8 index with the multi-row
+    layout on the card, and the ground truth of the first 4000 queries."""
+    from auncel_tpu_torch import IVFFlatIndex
+    from auncel_tpu_torch.data import make_clustered_dataset
+
+    times = {}
+    t0 = time.perf_counter()
+    ds = make_clustered_dataset(nb=NB10M, nq=NQ10M, d=D10M, n_clusters=8192,
+                                cluster_std=0.13, query_mode="perturb",
+                                pert_easy=0.4, pert_hard=1.2, seed=42)
+    xb, xq = ds.xb, ds.xq[:START10M + N_TEST_Q]
+    del ds
+    times["data"] = time.perf_counter() - t0
+    idx = IVFFlatIndex(D10M, NLIST, storage="sq8")
+    _, times["train"] = synced(lambda: idx.train(xb[:400_000]))
+    _, times["add+pack"] = synced(lambda: (idx.add(xb), idx.arrays))
+    del xb
+    mr, times["multirow"] = synced(lambda: idx.enable_multirow())
+    a, rows = idx.arrays, mr.rows
+    check(a.db.dtype == torch.uint8 and rows.db.dtype == torch.uint8
+          and a.db.shape[2] == D10M, f"SQ8 storage: {a.db.dtype} "
+          f"{tuple(a.db.shape)}")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    log(f"[sq8 10M] index: {NB10M}x{D10M} SQ8, nlist {NLIST}, cap {a.cap} "
+        f"(packing {idx.packing_efficiency:.3f}), rows {rows.db.shape[0]}x"
+        f"{rows.db.shape[1]}; on the card: padded codes "
+        f"{nbytes(a.db) / 2**30:.3f} GiB, row codes "
+        f"{nbytes(rows.db) / 2**30:.3f} GiB, norms "
+        f"{nbytes(a.db_sq, rows.db_sq) / 2**30:.3f} GiB, ids "
+        f"{nbytes(a.vec_ids, rows.vec_ids) / 2**30:.3f} GiB; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    (gt_D, gt_I), times["exact_search"] = synced(
+        lambda: idx.exact_search(xq, MAX_TOPK, batch=1000))
+    return dict(idx=idx, xq=xq, gt_D=gt_D, gt_I=gt_I, times=times)
+
+
+def sq8_10m_phase(card: str, profile_dir: str | None) -> dict:
+    """[sq8 10M]: the headline configuration on the port's main path:
+    profile training (K2 on the padded codes), calibration, the held-out
+    window (one-shot engine, K1 on the row codes) and batch-1 windows,
+    worst-case recall@10 >= 0.9 or the run fails; then fixed-nprobe
+    search on the dense route against the gathers, and with max_codes;
+    then K1 and K2 against their plain versions at worklists recorded from
+    this path. Returns the main path's launches and the kernels' numbers."""
+    from auncel_tpu_torch import ErrorSys
+
+    c = build_10m(card)
+    idx, xq, gt_D, times = c["idx"], c["xq"], c["gt_D"], c["times"]
+    reset_counts()
+    es = ErrorSys(idx, train_num=START10M + N_TEST_Q, max_topk=MAX_TOPK)
+    es.set_gt(gt_D, c["gt_I"])
+    (_, times["sys_train"]), train = counted(
+        lambda: synced(lambda: es.sys_train(PROFILE10M, xq)))
+    es.set_topk(K)
+    es.set_queries(N_TEST_Q, xq, np.full(START10M + N_TEST_Q, 1.0 - EPS,
+                                         np.float32))
+    mult, times["calibrate"] = synced(
+        lambda: es.calibrate(PROFILE10M, CAL10M, target_bound=1.0 - EPS))
+    log(f"[sq8 10M] calibrate on [{PROFILE10M}, {PROFILE10M + CAL10M}): "
+        f"multipler={mult:.3f} std_m={es.std_m} _cal_mean_scan="
+        f"{es._cal_mean_scan:.3f} _dense_min_bsz={es._dense_min_bsz}")
+    window = serve_window(es, gt_D, card, "sq8 10M", start=START10M)
+    times["search"] = window["seconds"]
+    lat = serve_batch1(es, N_LATENCY10M, card, "sq8 10M latency",
+                       start=START10M)
+    launches = launch_counts()
+    log("[sq8 10M stages] " + " ".join(f"{k}={v:.2f}s"
+                                       for k, v in times.items())
+        + f" [{card}]")
+    log(f"[sq8 10M] launches over the path: {launches}, profile training "
+        f"{train}")
+    check(train["scan_scores"] > 0, "10M profile training never launched K2")
+    check(window["launches"]["rowscan_scores"] > 0
+          and lat.get("rowscan_scores", 0) > 0, "10M search never launched K1")
+    if profile_dir:
+        profile_call(lambda: es.search(START10M, N_TEST_Q), profile_dir,
+                     card, "sq8 10M window")
+        profile_call(lambda: es.search(START10M, 1), profile_dir, card,
+                     "sq8 10M batch1")
+    with uncounted():
+        fixed_10m(idx, xq, card)
+        kernels = kernels_10m(es, xq, card)
+    return {"launches": launches, "kernels": kernels,
+            "min_recall": window["min_recall"]}
+
+
+def fixed_10m(idx, xq, card: str) -> None:
+    """Fixed-nprobe search of the held-out queries at nprobe 32: the
+    default route (the dense crossover: 1000 x 32 passes 64 x 0.25 x
+    nlist) against dense_cut None (the gathers), ids equal except where
+    the two distances lie within 1e-5 of q_sq + db_sq, as strict_phase
+    judges; then max_codes against the fixed-nprobe search at each query's
+    own limit."""
+    from auncel_tpu_torch.index.scan import coarse_rank, maxcodes_limit
+    q = xq[START10M:START10M + N_TEST_Q]
+    nprobe = FIXED_NPROBE10M
+    check(idx.dense_route(N_TEST_Q, nprobe), "nprobe 32 is not dense")
+
+    def route(cut):
+        def run():
+            idx.dense_cut = cut
+            return idx.search(q, K, nprobe=nprobe)
+        return run
+    (Dd, Id), (Dg, Ig) = route(0.25)(), route(None)()
+    ms_d, ms_g, t_d, t_g = in_turns(route(0.25), route(None), 2)
+    idx.dense_cut = 0.25
+    norms = result_norms(idx)
+    q_sq = (q * q).sum(1)
+    terms = q_sq[:, None] + np.maximum(
+        norms[torch.as_tensor(Id, device=idx.device)].cpu().numpy(),
+        norms[torch.as_tensor(Ig, device=idx.device)].cpu().numpy())
+    diff = np.abs(Dd - Dg)
+    log(f"[sq8 10M fixed] B={N_TEST_Q} nprobe={nprobe}: dense route "
+        f"{ms_d:.2f} ms ({t_d}) against gather {ms_g:.2f} ms ({t_g}); id "
+        f"positions that differ {int((Id != Ig).sum())}; max |D| diff "
+        f"{diff.max():.3g} (largest 1e-5 (q_sq + db_sq) "
+        f"{1e-5 * terms.max():.3g}) [{card}]")
+    check(bool((diff <= 1e-5 * terms).all()),
+          "10M dense and gather distances beyond 1e-5 of q_sq + db_sq")
+    # max_codes: each query's limit, then the plain search at that limit
+    idx.max_codes = MAX_CODES10M
+    (Dm, Im), t_m = synced(lambda: idx.search(q, K, nprobe=nprobe))
+    idx.max_codes = 0
+    qt = torch.as_tensor(q, device=idx.device)
+    _, cids = coarse_rank(idx.arrays, qt, idx.metric, rank_k=nprobe)
+    g = maxcodes_limit(idx.arrays.list_sizes[cids.long()], nprobe,
+                       MAX_CODES10M).cpu().numpy()
+    bad = 0
+    idx.dense_cut = None   # max_codes gathers; so do the searches it is
+    for lim in np.unique(g):  # held to
+        sel = np.where(g == lim)[0]
+        _, Il = idx.search(q[sel], K, nprobe=int(lim))
+        bad += int((Il != Im[sel]).any(axis=1).sum())
+    idx.dense_cut = 0.25
+    log(f"[sq8 10M fixed] max_codes {MAX_CODES10M} at nprobe {nprobe}: "
+        f"lists scanned {g.min()}-{g.max()} (mean {g.mean():.2f}), "
+        f"{t_m * 1e3:.2f} ms; queries whose ids differ from the search at "
+        f"their own limit {bad} [{card}]")
+    check(bad == 0, "10M max_codes differs from the search at its limits")
+
+
+def kernels_10m(es, xq, card: str) -> dict:
+    """K1 and K2 on the SQ8 codes at worklists recorded from the 10M path:
+    the held-out window's row scans, a batch-1 search's and a profile-
+    training chunk (the largest recorded K2 call), each against its plain
+    version within 1e-5 of q_sq + db_sq."""
+    from auncel_tpu_torch.profile.trainer import train_profile
+    idx = es.index
+    out = {}
+    calls = record_row_scans(lambda: es.search(START10M, N_TEST_Q))
+    tot = k1_recorded("10M window", calls, card, tag="k1 sq8")
+    calls1 = record_row_scans(lambda: es.search(START10M, 1))
+    k1_recorded("10M batch 1", calls1, card, tag="k1 sq8")
+    big = max(calls, key=lambda c: int((c[1][6] >= 0).sum()))
+    out["rowscan_scores"] = k1_compare(
+        f"10M window, the largest row scan ({big[0]})", big[1], big[2], card,
+        reps=10, terms_tol=True, codec=big[3], label="k1 sq8")
+    out["rowscan_scores"]["window_ms"] = tot["ms"]
+    q = xq[:100]
+    k2_calls = record_row_scans(
+        lambda: train_profile(idx.arrays, q, es.gt_D[:100], MAX_TOPK,
+                              idx.metric, n_batches=1), "scan_scores")
+    chunk = max(k2_calls, key=lambda c: c[1][6].numel())
+    out["scan_scores"] = k2_compare(
+        f"10M training chunk ({len(k2_calls)} calls; B x n_slots "
+        f"{tuple(chunk[1][6].shape)})", chunk[1], chunk[2], card, reps=10,
+        terms_tol=True, codec=chunk[3], label="k2 sq8")
+    return out
+
+
 def profile_search(es, out_dir: str, card: str, label: str) -> None:
     """Kernel-time breakdown of one batched and one batch-1 search."""
     for name, size in (("batched", N_TEST_Q), ("batch1", 1)):
@@ -1295,6 +1595,27 @@ def device_ms(fn, reps: int) -> float | None:
     return us / 1e3 / reps if us > 0 else None
 
 
+def ptxas_report(text: str) -> list:
+    """(kernel, registers and spills) of each entry function in nvcc's
+    ``-Xptxas -v`` output, the kernel named by its function and template
+    arguments as they appear in the mangled name."""
+    import re
+    out, fn, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
+            args = re.findall(r"F32|BF16|SQ8|SQ4|SQ6|Lb[01]", m.group(1))
+            fn = (" ".join([name.group(1)] + args) if name
+                  else m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and fn is not None:
+            out.append((fn, f"{line.split(':', 1)[1].strip()}; {spill}"))
+            fn = None
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU",
@@ -1315,9 +1636,8 @@ def main() -> int:
         + ", ".join(f"{build.BUILD_INFO[n]['seconds']:.2f} s"
                     for n in sources) + ")")
     for n in sources:
-        for line in build.BUILD_INFO[n]["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {n}: {line.strip()}")
+        for fn, report in ptxas_report(build.BUILD_INFO[n]["log"]):
+            log(f"[build] {n}: {fn}: {report}")
     profile_dir = None
     if "--profile" in sys.argv:
         profile_dir = sys.argv[sys.argv.index("--profile") + 1]
@@ -1325,6 +1645,7 @@ def main() -> int:
     k1 = k1_check(device, card)
     k1_dots = k1_dots_check(device, card)
     k2_check(device, card)
+    codecs = codec_check(device, card)
     corpus = build_corpus(card)
     if "--kernels" in sys.argv:
         kernels_on_index(corpus, device, card)
@@ -1333,26 +1654,50 @@ def main() -> int:
     mr_launches = multirow_path(corpus, card, profile_dir)
     pad_launches = padded_path(corpus, card, profile_dir)
     k2 = kernels_on_index(corpus, device, card)
-    log(f"[total] {time.perf_counter() - t0:.1f} s")
+    del corpus
+    torch.cuda.empty_cache()
+    log(f"[total] 1M phases {time.perf_counter() - t0:.1f} s")
+    t10 = time.perf_counter()
+    sq8 = sq8_10m_phase(card, profile_dir)
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the 10M phase "
+        f"{time.perf_counter() - t10:.1f} s)")
+
     def launches(name):
         return mr_launches[name] + pad_launches[name]
 
+    def numbers(res):
+        return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")}
+    k1_src, k2_src = ("auncel_tpu_torch/csrc/rowscan.cu",
+                      "auncel_tpu_torch/csrc/scan_scores.cu")
+    k1_tpu, k2_tpu = ("auncel_tpu/pallas_kernels/rowscan.py:77",
+                      "auncel_tpu/pallas_kernels/scan_scores.py:89")
     kernels = [
-        {"name": "rowscan_scores", "route": "cuda",
-         "source": "auncel_tpu_torch/csrc/rowscan.cu",
-         "replaces": "auncel_tpu/pallas_kernels/rowscan.py:77",
-         "launches": launches("rowscan_scores"), "library_ms": None,
-         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by")}},
-        {"name": "rowscan_dots", "route": "cuda",
-         "source": "auncel_tpu_torch/csrc/rowscan.cu",
-         "replaces": "auncel_tpu/pallas_kernels/rowscan.py:77",
-         "launches": launches("rowscan_dots"), "library_ms": None,
-         **k1_dots},
-        {"name": "scan_scores", "route": "cuda",
-         "source": "auncel_tpu_torch/csrc/scan_scores.cu",
-         "replaces": "auncel_tpu/pallas_kernels/scan_scores.py:89",
-         "launches": launches("scan_scores"), "library_ms": None, **k2}]
+        {"name": "rowscan_scores", "route": "cuda", "source": k1_src,
+         "replaces": k1_tpu, "launches": launches("rowscan_scores"),
+         "library_ms": None, **numbers(k1)},
+        {"name": "rowscan_dots", "route": "cuda", "source": k1_src,
+         "replaces": k1_tpu, "launches": launches("rowscan_dots"),
+         "library_ms": None, **k1_dots},
+        {"name": "scan_scores", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": launches("scan_scores"),
+         "library_ms": None, **numbers(k2)},
+        {"name": "rowscan_scores sq8", "route": "cuda", "source": k1_src,
+         "replaces": k1_tpu, "launches": sq8["launches"]["rowscan_scores"],
+         "library_ms": None, **numbers(sq8["kernels"]["rowscan_scores"])},
+        {"name": "scan_scores sq8", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": sq8["launches"]["scan_scores"],
+         "library_ms": None, **numbers(sq8["kernels"]["scan_scores"])}]
+    # the other codecs run only in the comparisons (no main-path launch)
+    for (name, codec), res in codecs.items():
+        if codec == "sq8":
+            continue
+        kernels.append({"name": f"{name} {codec}", "route": "cuda",
+                        "source": k1_src if name == "rowscan_scores"
+                        else k2_src,
+                        "replaces": k1_tpu if name == "rowscan_scores"
+                        else k2_tpu, "launches": 0, "library_ms": None,
+                        **numbers(res)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

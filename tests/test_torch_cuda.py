@@ -1,10 +1,12 @@
 """The port on a CUDA card, skipped without one: K1 (rowscan_scores on the
-main path, rowscan_dots beside it) and K2 against their plain versions, and
-the bounded-search slices (the multi-row path and the padded path) on the
-card against the same slices on the CPU, where the kernels' plain versions
-run. The entry points' default device is checked everywhere. This file
-imports no jax, so it also runs where jax is not installed, without the
-suite's conftest:
+main path, rowscan_dots beside it) and K2 against their plain versions, on
+every storage codec too (float32, bf16, SQ8, SQ4, SQ6, at widths whose
+slots are and are not a multiple of 16 bytes), and the bounded-search
+slices (the multi-row path, on float32 and SQ8 storage, and the padded
+path) on the card against the same slices on the CPU, where the kernels'
+plain versions run. The entry points' default device is checked
+everywhere. This file imports no jax, so it also runs where jax is not
+installed, without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -17,11 +19,13 @@ import torch
 
 import auncel_tpu_torch as att
 from auncel_tpu_torch import convert
+from auncel_tpu_torch.index.flat import sq_levels, sq_pack
 from auncel_tpu_torch.index.ivf import compute_interdis
 from auncel_tpu_torch.kernels.rowscan import (
     rowscan_dots, rowscan_dots_ref, rowscan_scores, rowscan_scores_ref)
 from auncel_tpu_torch.kernels.scan_scores import scan_scores, scan_scores_ref
 from auncel_tpu_torch.ops.kmeans import kmeans
+from auncel_tpu_torch.ops.sq import sq_decode_dev
 from auncel_tpu_torch.types import Metric
 from torch_parity import (ACC, D, K, MAX_TOPK, N_TEST, N_TRAIN, NLIST,
                           ROW_CAP, make_data)
@@ -234,10 +238,109 @@ def test_k1_direct_mode_equals_worklist_mode():
                                                                ids[b:b + 1])
 
 
-def _slice(device):
+def coded_inputs(codec, n, cap, d, B, n_slots, device, seed=0):
+    """``padded_inputs`` with the stored vectors in ``codec``: bf16 values,
+    or SQ codes (random levels, a range that decodes to about N(0, 1/d))
+    with their scale and bias; db_sq the decoded norms, zero at dead
+    slots. Returns (args, sq_scale, sq_bias)."""
+    args = list(padded_inputs(n, cap, d, B, n_slots, device, seed=seed))
+    live = args[2] >= 0
+    if codec == "f32":
+        return args, None, None
+    if codec == "bf16":
+        db = args[0].to(torch.bfloat16)
+        x = db.float()
+        args[0] = db
+        args[1] = torch.where(live, (x * x).sum(-1), 0.0)
+        return args, None, None
+    rng = np.random.RandomState(seed)
+    levels = int(sq_levels(codec))
+    codes = rng.randint(0, levels + 1, (n * cap, d)).astype(np.uint8)
+    scale = (rng.rand(d) * 4.0 / levels / d ** 0.5 + 1e-3).astype(
+        np.float32)
+    bias = (-0.5 * levels * scale + 0.1 * rng.randn(d)).astype(np.float32)
+    sq_scale = torch.from_numpy(scale).to(device)
+    sq_bias = torch.from_numpy(bias).to(device)
+    db = torch.from_numpy(sq_pack(codes, codec)).to(device).reshape(
+        n, cap, -1)
+    x = sq_decode_dev(db, d, sq_scale, sq_bias)
+    args[0] = db
+    args[1] = torch.where(live, (x * x).sum(-1), 0.0)
+    return args, sq_scale, sq_bias
+
+
+# (codec, d): every codec at d = 96 and 128 and at a width whose slot is
+# not a multiple of 16 bytes (bf16 200 and SQ8 100 bytes: float4 dots,
+# no TMA; SQ6 72 bytes at d = 96; SQ4 49 and SQ6 27 bytes: byte copies,
+# and SQ4 at d = 98 the scalar dots)
+CODEC_CASES = [(c, d) for c in ("f32", "bf16", "sq8", "sq4", "sq6")
+               for d in (96, 128)] + [
+    ("bf16", 100), ("sq8", 100), ("sq4", 98), ("sq6", 36), ("f32", 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec, d", CODEC_CASES)
+def test_codec_kernels_match_plain_version(codec, d):
+    """K2 and K1 on coded storage against their plain versions (ids equal,
+    scores within 1e-5 on N(0, 1/d) data), and K1 bitwise equal to K2 over
+    the same rows: worklist mode with inactive entries, ragged sizes and
+    out-of-range ids, a row probed by more than a chunk, and batch 1 (the
+    direct mode)."""
+    dev = _card()
+    for n, cap, B, n_slots, one_row in ((40, 200, 64, 6, False),
+                                       (16, 256, 100, 2, True),
+                                       (40, 77, 1, 8, False)):
+        args, sc, bi = coded_inputs(codec, n, cap, d, B, n_slots, dev,
+                                    seed=d + B)
+        if one_row:
+            args[6] = torch.full((B, n_slots), 5, dtype=torch.int32,
+                                 device=dev)
+        for metric in (Metric.L2, Metric.IP):
+            k2 = scan_scores.launches
+            s2, i2 = scan_scores(*args, metric, sq_scale=sc, sq_bias=bi)
+            k1 = rowscan_scores.launches
+            s1, i1 = rowscan_scores(*args, metric, sq_scale=sc, sq_bias=bi)
+            torch.cuda.synchronize()
+            assert scan_scores.launches == k2 + 1
+            assert rowscan_scores.launches == k1 + 1
+            want_s, want_i = scan_scores_ref(*args, metric, sc, bi)
+            assert torch.equal(i2, want_i)
+            torch.testing.assert_close(s2, want_s, rtol=1e-5, atol=1e-5)
+            assert torch.equal(s1, s2) and torch.equal(i1, i2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec, d", [("bf16", 96), ("sq8", 96),
+                                      ("sq4", 128), ("sq6", 96),
+                                      ("sq8", 100), ("sq4", 98),
+                                      ("sq6", 36)])
+def test_codec_decode_bitwise(codec, d):
+    """With unit queries a dot is one decoded element (the other products
+    are zeros), so the kernels' IP scores are their decoded values: equal
+    bit for bit to the plain decode (a multiply, then an add)."""
+    dev = _card()
+    n, cap = 6, 40
+    args, sc, bi = coded_inputs(codec, n, cap, d, d, n, dev, seed=1)
+    args[2] = torch.arange(n * cap, dtype=torch.int32,
+                           device=dev).reshape(n, cap)
+    args[3] = torch.full((n,), cap, dtype=torch.int32, device=dev)
+    args[4] = torch.eye(d, device=dev)
+    args[5] = torch.ones(d, device=dev)
+    args[6] = torch.arange(n, dtype=torch.int32,
+                           device=dev).repeat(d, 1)
+    x = (sq_decode_dev(args[0], d, sc, bi) if sc is not None
+         else args[0].float())                       # [n, cap, d]
+    want = x.permute(2, 0, 1).reshape(d, n * cap)    # [query dim, slot]
+    for fn in (scan_scores, rowscan_scores):
+        got, _ = fn(*args, Metric.IP, sq_scale=sc, sq_bias=bi)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def _slice(device, storage="f32"):
     """The main path after k-means, at the parity fixture's size."""
     centers, xb, xq = make_data()
-    idx = att.IVFFlatIndex(D, NLIST, device=device)
+    idx = att.IVFFlatIndex(D, NLIST, device=device, storage=storage)
     idx.set_centroids(centers)
     idx.add(xb)
     idx.enable_multirow(row_cap=ROW_CAP)
@@ -264,6 +367,23 @@ def test_slice_on_the_card_matches_the_cpu():
     k1, dots = rowscan_scores.launches, rowscan_dots.launches
     card = _slice(dev)
     assert rowscan_scores.launches > k1 and rowscan_dots.launches == dots
+    np.testing.assert_array_equal(card["gt_I"], cpu["gt_I"])
+    assert card["mult"] == cpu["mult"]
+    for name in ("I", "np", "ns", "I1", "np1"):
+        np.testing.assert_array_equal(card[name], cpu[name])
+    for name in ("D", "D1"):
+        np.testing.assert_allclose(card[name], cpu[name], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sq8_slice_on_the_card_matches_the_cpu():
+    """The main path on SQ8 storage: K1 and K2 decode the codes on the
+    card, the plain versions on the CPU."""
+    dev = _card()
+    cpu = _slice("cpu", storage="sq8")
+    k1, k2 = rowscan_scores.launches, scan_scores.launches
+    card = _slice(dev, storage="sq8")
+    assert rowscan_scores.launches > k1 and scan_scores.launches > k2
     np.testing.assert_array_equal(card["gt_I"], cpu["gt_I"])
     assert card["mult"] == cpu["mult"]
     for name in ("I", "np", "ns", "I1", "np1"):

@@ -144,8 +144,10 @@ def test_pack_matches_jax_layout(cap_quantile):
 
 
 def test_storage_codecs_not_ported_raise():
+    # the SQ and bf16 codecs are ported (tests/test_torch_codecs.py); PQ
+    # is not
     with pytest.raises(NotImplementedError):
-        IVFFlatIndex(D, NLIST, storage="sq8", device=DEVICE)
+        IVFFlatIndex(D, NLIST, storage="pq8", device=DEVICE)
     with pytest.raises(NotImplementedError):
         IVFFlatIndex(D, NLIST, coarse="imi", device=DEVICE)
 

@@ -81,6 +81,19 @@ def jax_fixture():
 
 
 @functools.lru_cache(maxsize=None)
+def codec_fixture(storage: str):
+    """A JAX index on the fixture's centroids and vectors with the given
+    storage codec and the multi-row layout."""
+    from auncel_tpu.index.ivf import IVFFlatIndex
+    f = jax_fixture()
+    idx = IVFFlatIndex(D, NLIST, storage=storage)
+    idx.set_centroids(f["centers"])
+    idx.add(f["xb"])
+    idx.enable_multirow(row_cap=ROW_CAP)
+    return idx
+
+
+@functools.lru_cache(maxsize=None)
 def port_state():
     """The fixture's JAX state carried into the port: (index, arrays,
     multirow, traces), all on the CPU."""
