@@ -1,17 +1,20 @@
-"""Carry index and profile state from the JAX package into the port.
+"""Carry index, profile and LAET model state from the JAX package into the
+port.
 
 Each function takes the JAX package's state as a dict of numpy arrays
-(``{name: np.asarray(value)}`` of an ``IVFArrays``, ``MultiRowArrays`` or
-``TraceSet``; a nested ``rows`` dict for ``MultiRowArrays``), so this module
-imports no jax. The storage codec comes across as it is: float32 or
-bfloat16 vectors, or SQ codes with their range. With them both packages
-compute on identical state. The tensors go to the card unless ``device``
-says otherwise.
+(``{name: np.asarray(value)}`` of an ``IVFArrays``, ``MultiRowArrays``,
+``TraceSet`` or LAET ``_MLP``; a nested ``rows`` dict for
+``MultiRowArrays``), so this module imports no jax. The LAET regressor's
+weights are the ones carried across. The storage codec comes across as it
+is: float32 or bfloat16 vectors, or SQ codes with their range. With them
+both packages compute on identical state. The tensors go to the card unless
+``device`` says otherwise.
 """
 
 import numpy as np
 import torch
 
+from auncel_tpu_torch.baselines.laet import MLP
 from auncel_tpu_torch.index.scan import IVFArrays, RowArrays
 from auncel_tpu_torch.index.multirow import MultiRowArrays
 from auncel_tpu_torch.profile.trace import TraceSet, traces_from_arrays
@@ -66,3 +69,15 @@ def traces_from_numpy(state: dict, device="cuda") -> TraceSet:
     """TraceSet from the JAX package's TraceSet fields."""
     return traces_from_arrays(state["phi"], state["u"], state["std"],
                               state["n_bins"], device)
+
+
+def mlp_from_numpy(state: dict, device="cuda"):
+    """The LAET regressor from the JAX package's ``_MLP`` fields (numpy
+    ``w1, b1, w2, b2, w3, b3``, weights [in, out])."""
+    w1 = np.asarray(state["w1"], np.float32)
+    mlp = MLP(w1.shape[0], w1.shape[1])
+    with torch.no_grad():
+        for f in ("w1", "b1", "w2", "b2", "w3", "b3"):
+            getattr(mlp, f).copy_(torch.from_numpy(
+                np.array(state[f], np.float32)))
+    return mlp.to(device)

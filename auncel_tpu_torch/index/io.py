@@ -1,0 +1,104 @@
+"""Index files (port of the IVF-Flat part of ``auncel_tpu/index/io.py``).
+
+The layout is the JAX package's: one ``.npz`` holding a JSON ``header``
+(version, kind, d, metric, nlist, trained, ntotal, storage, and for the
+dedup kind the ``dup`` map) and the payload ``centroids`` (when trained)
+and, when vectors are stored, ``db`` (the stored vectors decoded to
+float32, [nlist, cap, d]), ``vec_ids``, ``list_sizes`` and, for SQ
+storage, ``sq_scale``/``sq_bias``. A file either package writes loads in
+the other: an SQ index reloads with its saved range and so re-encodes to
+the same codes, and a trained-but-empty file (centroids only) is the
+trained-quantizer cache of the evaluation harness.
+
+Only the ``IVFFlat`` and ``IVFFlatDedup`` kinds are ported; every other
+kind raises ``NotImplementedError``.
+"""
+
+import json
+
+import numpy as np
+
+from auncel_tpu_torch.index.ivf import IVFFlatDedupIndex, IVFFlatIndex
+from auncel_tpu_torch.types import Metric
+
+_FORMAT_VERSION = 1
+
+# kinds the JAX package writes that the port does not load yet, and the
+# ROADMAP.md item that ports each
+_NOT_PORTED = {
+    "Flat": "queue 1 item 7 (index/flat.py)",
+    "IVFPQR": "queue 1 item 7 (ivfpqr.py)",
+    "2Layer": "queue 1 item 7 (twolayer.py)",
+    "BFlat": "queue 1 item 7 (binary.py)",
+    "BIVF": "queue 1 item 7 (binary.py)",
+    "BHNSW": "queue 1 item 7 (binary.py)",
+}
+
+
+def save_index(index: IVFFlatIndex, path: str) -> None:
+    """Write an IVF-Flat (or dedup) index, trained or not, empty or not."""
+    if not isinstance(index, IVFFlatIndex):
+        raise NotImplementedError(
+            f"cannot serialize {type(index).__name__}: the port writes "
+            "IVFFlat and IVFFlatDedup files only (ROADMAP.md queue 1 "
+            "item 7)")
+    dedup = isinstance(index, IVFFlatDedupIndex)
+    header = dict(version=_FORMAT_VERSION,
+                  kind="IVFFlatDedup" if dedup else "IVFFlat", d=index.d,
+                  metric=index.metric.value, nlist=index.nlist,
+                  trained=index.is_trained, ntotal=index.ntotal,
+                  storage=index.storage)
+    if dedup:
+        header["dup"] = {str(k): v for k, v in index._dup.items()}
+    payload = dict(header=json.dumps(header))
+    if index.is_trained:
+        payload["centroids"] = index.centroids
+    if index.ntotal:
+        a = index.arrays
+        payload["db"] = a.decode_block(a.db).cpu().numpy().astype(np.float32)
+        payload["vec_ids"] = a.vec_ids.cpu().numpy()
+        payload["list_sizes"] = a.list_sizes.cpu().numpy()
+        if a.sq_scale is not None:
+            payload["sq_scale"] = a.sq_scale.cpu().numpy()
+            payload["sq_bias"] = a.sq_bias.cpu().numpy()
+    np.savez(path, **payload)
+
+
+def load_index(path: str, device="cuda") -> IVFFlatIndex:
+    """Read an index file of either package onto ``device``."""
+    with np.load(path, allow_pickle=False) as z:
+        header = json.loads(str(z["header"]))
+        kind = header["kind"]
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"index kind {kind!r} is not ported: ROADMAP.md "
+                f"{_NOT_PORTED[kind]}")
+        if kind not in ("IVFFlat", "IVFFlatDedup"):
+            raise ValueError(f"unrecognized index file {path}")
+        dedup = kind == "IVFFlatDedup"
+        cls = IVFFlatDedupIndex if dedup else IVFFlatIndex
+        idx = cls(header["d"], header["nlist"],
+                  Metric.parse(header["metric"]), device=device,
+                  storage=header.get("storage", "f32"))
+        if header["trained"]:
+            idx.set_centroids(z["centroids"])
+        if "sq_scale" in z:
+            # the saved range: the codes re-encode bit for bit
+            idx._sq_range_override = (np.asarray(z["sq_bias"], np.float32),
+                                      np.asarray(z["sq_scale"], np.float32))
+        if header["ntotal"]:
+            vec_ids = z["vec_ids"]
+            mask = vec_ids >= 0
+            flat_x = z["db"][mask]
+            flat_ids = vec_ids[mask].astype(np.int64)
+            if dedup:
+                # the stored rows are unique already
+                IVFFlatIndex.add(idx, flat_x, flat_ids)
+                idx._sig = {flat_x[r].tobytes(): int(flat_ids[r])
+                            for r in range(len(flat_ids))}
+            else:
+                idx.add(flat_x, flat_ids)
+        if dedup:
+            idx._dup = {int(k): list(v)
+                        for k, v in header.get("dup", {}).items()}
+        return idx

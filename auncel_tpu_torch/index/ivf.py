@@ -8,21 +8,26 @@ engine scans. Storage: "f32", "bf16", or the scalar quantizers "sq8",
 "sq4", "sq8u", "sq4u", "sq6" and "sq8d" (uint8 codes with a per-dimension
 affine range; every distance is on decoded values). Fixed-nprobe search
 takes the JAX package's routes: the dense crossover on the multi-row
-layout, and the ``max_codes`` budget on both layouts.
-Not ported yet: PQ storage, the IMI and HNSW coarse quantizers,
-reconstruction and updates; each raises ``NotImplementedError`` or is
-absent.
+layout, and the ``max_codes`` budget on both layouts, and adds to the
+``index/aux.py`` counters. Stored vectors come back decoded through the
+codec (``reconstruct`` and its family), ``update_vectors`` repacks with
+the SQ range kept, and ``IVFFlatDedupIndex`` stores each distinct vector
+once. Not ported yet: PQ storage and the IMI and HNSW coarse quantizers;
+each raises ``NotImplementedError``.
 """
+
+import time
 
 import numpy as np
 import torch
 
 from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.device import resolve
+from auncel_tpu_torch.index.aux import ivf_stats
 from auncel_tpu_torch.index.flat import (
     sq_code_width, sq_encode, sq_pack, sq_train_range)
 from auncel_tpu_torch.index.scan import (
-    IVFArrays, ivf_full_scan, ivf_search_fixed)
+    IVFArrays, coarse_rank, ivf_full_scan, ivf_search_fixed)
 from auncel_tpu_torch.index.multirow import (
     MultiRowArrays, build_multirow, multirow_dense_fixed,
     multirow_search_fixed)
@@ -185,7 +190,7 @@ class IVFFlatIndex:
         self.set_centroids(res.centroids)
 
     def set_centroids(self, centroids: np.ndarray) -> None:
-        centroids = np.asarray(centroids, np.float32)
+        centroids = np.array(centroids, np.float32)   # a writable copy
         assert centroids.shape == (self.nlist, self.d)
         self.centroids = centroids
         self.interdis = (compute_interdis(centroids, self.metric, self.device)
@@ -222,6 +227,14 @@ class IVFFlatIndex:
         self._ntotal += x.shape[0]
         self._arrays = None
         self._multirow = None
+
+    def assign(self, x: np.ndarray) -> np.ndarray:
+        """Nearest-centroid assignment by the index metric (IP: the largest
+        dot product), [n] int64."""
+        from auncel_tpu_torch.ops.knn import knn
+        res = knn(x, self.centroids, 1, self.metric, q_block=65536,
+                  device=self.device)
+        return res.ids[:, 0].astype(np.int64)
 
     def _sq_range(self, x: np.ndarray) -> tuple:
         """(vmin, scale) [d] f32 of the SQ codec: the pinned range if one
@@ -394,14 +407,20 @@ class IVFFlatIndex:
         enabled (by the dense crossover when ``dense_route`` says so), else
         over the padded lists; ``max_codes`` > 0 stops each query after
         the ranked list that crosses that many codes. Returns numpy
-        (D, I)."""
+        (D, I) and adds to ``ivf_stats``: ``ndis`` counts the slots the
+        route's shape spans (the padded lists' cap, the corpus rows on the
+        dense route, the nprobe largest lists' rows on the gathers)."""
         nprobe = min(int(nprobe if nprobe is not None else self.nprobe),
                      self.nlist)
+        t0 = time.perf_counter()
         qt = self._q(q)
+        B = qt.shape[0]
         mr = self.multirow
         max_codes = int(self.max_codes)
-        if mr is not None and self.dense_route(qt.shape[0], nprobe):
+        ndis = B * nprobe * self.arrays.cap
+        if mr is not None and self.dense_route(B, nprobe):
             vals, ids = multirow_dense_fixed(mr, qt, nprobe, k, self.metric)
+            ndis = B * mr.rows.db.shape[0] * mr.rows.cap
         elif mr is not None:
             # the exact sum of the nprobe largest per-list row counts (the
             # JAX package rounds it up to a power of two, a shape bucket;
@@ -412,10 +431,16 @@ class IVFFlatIndex:
                 mr, qt, k, nprobe, out_slots, self.metric,
                 code_sizes=self.arrays.list_sizes if max_codes else None,
                 max_codes=max_codes)
+            ndis = B * out_slots * mr.rows.cap
         else:
             vals, ids = ivf_search_fixed(self.arrays, qt, k, nprobe,
                                          self.metric, max_codes)
-        return vals.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
+        out = vals.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
+        ivf_stats.nq += B
+        ivf_stats.nlist_scanned += B * nprobe
+        ivf_stats.ndis += ndis
+        ivf_stats.search_time_ms += (time.perf_counter() - t0) * 1e3
+        return out
 
     def exact_search(self, q: np.ndarray, k: int, batch: int = 1024):
         """Full scan (nprobe = nlist) whose distance values match the probe
@@ -432,3 +457,143 @@ class IVFFlatIndex:
             out_i[q0:q0 + batch] = i.cpu().numpy()
         return out_v, out_i
 
+
+    def coarse_rank_np(self, q: np.ndarray):
+        """Every list ranked per query: numpy (cdis, cids) [nq, nlist]."""
+        cdis, cids = coarse_rank(self.arrays, self._q(q), self.metric)
+        return cdis.cpu().numpy(), cids.cpu().numpy()
+
+    def update_vectors(self, ids: np.ndarray, x: np.ndarray) -> None:
+        """Replace the stored vectors of the given ids and repack (each
+        updated vector goes to its new nearest list). An SQ index keeps its
+        range, so the untouched rows re-encode to the same codes."""
+        ids = np.asarray(ids, np.int64)
+        x = np.asarray(x, np.float32)
+        assert ids.shape[0] == x.shape[0] and x.shape[1] == self.d
+        a = self.arrays
+        db = decoded_db(a)
+        stored_ids = a.vec_ids.cpu().numpy()
+        keep = stored_ids >= 0
+        flat_x = db[keep].astype(np.float32)
+        flat_ids = stored_ids[keep].astype(np.int64)
+        lut = {int(i): j for j, i in enumerate(ids)}
+        for j, vid in enumerate(flat_ids):
+            if int(vid) in lut:
+                flat_x[j] = x[lut[int(vid)]]
+        preserve_sq_range(self)
+        self.reset()
+        self.add(flat_x, ids=flat_ids)
+
+    def reconstruct(self, key: int) -> np.ndarray:
+        return _ivf_reconstruct(self, np.asarray([key], np.int64))[0]
+
+    def reconstruct_n(self, i0: int, n: int) -> np.ndarray:
+        return _ivf_reconstruct(self, np.arange(i0, i0 + n, dtype=np.int64))
+
+    def reconstruct_from_offset(self, list_no: int, offset: int
+                                ) -> np.ndarray:
+        """The stored vector at (list, slot), decoded through the codec."""
+        a = self.arrays
+        if not 0 <= list_no < self.nlist:
+            raise KeyError(f"list {list_no} out of range (nlist="
+                           f"{self.nlist})")
+        size = int(a.list_sizes[list_no])
+        if not 0 <= offset < size:
+            raise KeyError(f"offset {offset} out of range for list "
+                           f"{list_no} (size {size})")
+        blk = a.db[list_no, offset][None, None]
+        return np.array(a.decode_block(blk).cpu().numpy()[0, 0])
+
+    def reconstruct_batch(self, keys: np.ndarray) -> np.ndarray:
+        """The stored vectors of an id array in one pass; negative keys
+        give zeros."""
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        out = np.zeros((keys.size, self.d), np.float32)
+        valid = keys >= 0
+        if valid.any():
+            out[valid] = _ivf_reconstruct(self, keys[valid])
+        return out
+
+    def reset(self) -> None:
+        self._pending = []
+        self._arrays = None
+        self._multirow = None
+        self._ntotal = 0
+
+
+class IVFFlatDedupIndex(IVFFlatIndex):
+    """IVF-Flat that stores each distinct vector once (reference
+    IndexIVFFlatDedup, IndexIVFFlat.h:79): exact duplicates, across add
+    batches too, map to the stored instance, and searches expand them back
+    into the result at the same distance."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._dup: dict[int, list[int]] = {}
+        self._sig: dict[bytes, int] = {}   # vector bytes -> kept id
+
+    def add(self, x: np.ndarray, ids=None) -> None:
+        x = np.asarray(x, np.float32)
+        if ids is None:
+            n0 = self._ntotal + sum(len(v) for v in self._dup.values())
+            ids = np.arange(n0, n0 + x.shape[0], dtype=np.int64)
+        ids = np.asarray(ids, np.int64)
+        keep_rows, kept_ids = [], []
+        for row in range(x.shape[0]):
+            sig = x[row].tobytes()
+            kept = self._sig.get(sig)
+            if kept is None:
+                self._sig[sig] = int(ids[row])
+                keep_rows.append(row)
+                kept_ids.append(int(ids[row]))
+            else:
+                self._dup.setdefault(kept, []).append(int(ids[row]))
+        if keep_rows:
+            super().add(x[keep_rows], ids=np.asarray(kept_ids, np.int64))
+
+    def reset(self) -> None:
+        super().reset()
+        self._dup = {}
+        self._sig = {}
+
+    def search(self, q: np.ndarray, k: int, nprobe: int | None = None):
+        vals, ids = super().search(q, k, nprobe=nprobe)
+        if not self._dup:
+            return vals, ids
+        out_v = np.empty_like(vals)
+        out_i = np.empty_like(ids)
+        for r in range(ids.shape[0]):
+            vs, is_ = [], []
+            for v, i in zip(vals[r], ids[r]):
+                is_.append(i)
+                vs.append(v)
+                for dup in self._dup.get(int(i), ()):
+                    is_.append(dup)
+                    vs.append(v)          # the same vector, same distance
+                if len(is_) >= k:
+                    break
+            out_v[r] = np.asarray(vs[:k], vals.dtype)
+            out_i[r] = np.asarray(is_[:k], ids.dtype)
+        return out_v, out_i
+
+
+def decoded_db(a: IVFArrays) -> np.ndarray:
+    """The whole decoded [nlist, cap, d] float32 database on the host: the
+    route of every host-side reconstruction."""
+    return a.decode_block(a.db).cpu().numpy()
+
+
+def _ivf_reconstruct(index: IVFFlatIndex, keys: np.ndarray) -> np.ndarray:
+    """Stored vectors by id from the packed layout (one sorted lookup over
+    the id tensor), decoded through the codec; KeyError for an id not
+    stored."""
+    a = index.arrays
+    flat_ids = a.vec_ids.cpu().numpy().reshape(-1)
+    flat_db = decoded_db(a).reshape(-1, index.d)
+    order = np.argsort(flat_ids, kind="stable")
+    pos = np.searchsorted(flat_ids, keys, sorter=order)
+    got = flat_ids[order[np.clip(pos, 0, flat_ids.size - 1)]]
+    if not np.array_equal(got, keys):
+        missing = keys[got != keys]
+        raise KeyError(f"ids not stored: {missing[:5]}...")
+    return flat_db[order[pos]]

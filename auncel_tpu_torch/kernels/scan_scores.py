@@ -59,32 +59,35 @@ CODECS = {"f32": 0, "bf16": 1, "sq8": 2, "sq4": 3, "sq6": 4}
 def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
                     metric: Metric, sq_scale=None, sq_bias=None):
     """Plain PyTorch version: the gather, decode, dot and masks of the XLA
-    scan, a bounded number of (query, probe slot) entries at a time."""
+    scan, over the active (query, probe slot) entries only (an inactive
+    one is all padding), a bounded number at a time."""
     B, S = lists.shape
     nlist, cap, _ = db.shape
     d = q.shape[1]
-    flat = lists.reshape(-1).long().clamp(0, nlist - 1)
-    qe = q.repeat_interleave(S, dim=0)
+    dev = db.device
+    flat = lists.reshape(-1).long()
+    active = (flat >= 0).nonzero().squeeze(1)
+    scores = torch.full((B * S, cap), worst_value(metric),
+                        dtype=torch.float32, device=dev)
+    sub_ids = torch.full((B * S, cap), -1, dtype=torch.int32, device=dev)
+    slot = torch.arange(cap, device=dev)
     step = max(1, REF_CHUNK // max(cap * d, 1))
-    parts = []
-    for t0 in range(0, B * S, step):
-        sub = db[flat[t0:t0 + step]]
+    for t0 in range(0, active.numel(), step):
+        e = active[t0:t0 + step]
+        sel = flat[e].clamp_max(nlist - 1)   # ids past nlist: the last
+        sub = db[sel]
         x = (sq_decode_dev(sub, d, sq_scale, sq_bias) if sq_scale is not None
              else sub.to(torch.float32))
-        parts.append(torch.einsum("tcd,td->tc", x, qe[t0:t0 + step]))
-    dots = (torch.cat(parts) if parts else torch.zeros(
-        (0, cap), dtype=torch.float32, device=db.device)).reshape(B, S, cap)
-    sel = flat.reshape(B, S)
-    if metric is Metric.L2:
-        scores = (q_sq[:, None, None] + db_sq[sel] - 2.0 * dots).clamp_min(0.0)
-    else:
-        scores = dots
-    sub_ids = vec_ids[sel]
-    slot = torch.arange(cap, device=db.device)
-    live = ((lists >= 0)[:, :, None] & (slot < list_sizes[sel][:, :, None])
-            & (sub_ids >= 0))
-    scores = torch.where(live, scores, worst_value(metric))
-    sub_ids = torch.where(live, sub_ids, -1)
+        dots = torch.einsum("tcd,td->tc", x, q[e // S])
+        if metric is Metric.L2:
+            sc = (q_sq[e // S][:, None] + db_sq[sel] - 2.0 * dots
+                  ).clamp_min(0.0)
+        else:
+            sc = dots
+        ids = vec_ids[sel]
+        live = (slot < list_sizes[sel][:, None]) & (ids >= 0)
+        scores[e] = torch.where(live, sc, worst_value(metric))
+        sub_ids[e] = torch.where(live, ids, -1)
     return scores.reshape(B, S * cap), sub_ids.reshape(B, S * cap)
 
 

@@ -41,7 +41,21 @@ shapes the main path gives it (the window's waves, a training chunk, batch
                    fails) and 200 at batch 1 (K1 on the row codes), fixed-
                    nprobe search on the dense route against the gathers
                    and with max_codes, and K1 and K2 on the codes at
-                   worklists recorded from this path.
+                   worklists recorded from this path;
+  [eval]           the evaluation harness's experiments on the card
+                   (auncel_tpu_torch.eval_harness), from a temporary
+                   directory that holds their caches and logs: bound and
+                   compare at synthHard1M (1M x 128 with the hard query
+                   tail, IVF1024,Flat, profile on 1000 queries,
+                   calibration on 1000 disjoint ones, 1000 held out),
+                   each failing unless K1 and K2 launched in it and
+                   Auncel held worst-case recall@10 >= 0.9; compare's rows
+                   (auncel, elp, elp_margin, laet, laet_worst) and the
+                   route of every point of ELP's nprobe sweeps; K1 at the
+                   largest row scan of LAET's search and K2 at LAET's
+                   feature call against their plain versions; then
+                   effect_error (satisfaction of the mixed bounds >= 0.9
+                   or it fails), effect_time and overhead at synth100K.
 Every path is driven through the port's public entry points on their
 default device, with the kernels' launch counts set to 0 just before it
 and read just after (the launches that compare K1 with other routes are
@@ -1541,6 +1555,192 @@ def kernels_10m(es, xq, card: str) -> dict:
     return out
 
 
+# [eval]: the evaluation harness's experiments on the card, as
+# ``python -m auncel_tpu_torch.eval_harness.bound synthHard1M 2000 1000 10
+# 0.10 --profile-size 1000`` and the same for compare (1M x 128 with the
+# hard query tail, IVF1024,Flat on the multi-row layout), then
+# effect_error, effect_time and overhead at the JAX package's documented
+# defaults on synth100K (README.md: ts 1000, ses 1000, k 10, nlist 1024).
+EVAL_DB, EVAL_SMALL_DB, EVAL_NLIST = "synthHard1M", "synth100K", 1024
+EVAL_TS, EVAL_SES, EVAL_PROFILE, EVAL_LATENCY = 2000, 1000, 1000, 100
+EVAL_SMALL_TS = EVAL_SMALL_SES = 1000
+
+
+@contextlib.contextmanager
+def last_call(cls, name: str):
+    """Record the instance and arguments of the last call of cls.name made
+    inside the block."""
+    real = getattr(cls, name)
+    seen = {}
+
+    def wrapper(self, *args, **kw):
+        seen.update(self=self, args=args, kw=kw)
+        return real(self, *args, **kw)
+    setattr(cls, name, wrapper)
+    try:
+        yield seen
+    finally:
+        setattr(cls, name, real)
+
+
+def driven(label: str, fn):
+    """fn() with every launch count set to 0 just before it; (its result,
+    the launches it made, its seconds)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = launch_counts()
+    log(f"[eval {label}] {dt:.1f} s, launches {n}")
+    return out, n, dt
+
+
+def eval_phase(card: str) -> dict:
+    """[eval]: the harness's experiments on the card, from a temporary
+    directory that holds the quantizer cache, BENCH_CACHE and the logs;
+    each run with the launch counts set to 0 before it and read after.
+    bound and compare must launch K1 and K2, hold the bound (Auncel's
+    worst recall@10 >= 0.9) and effect_error must satisfy >= 0.9 of the
+    mixed bounds, or the run fails. Then K1 at a worklist recorded from
+    LAET's search and K2 at LAET's feature call, against their plain
+    versions. Returns the kernels' numbers and the path's launches."""
+    import os
+    import tempfile
+    from auncel_tpu_torch.autotune import ParameterSpace
+    from auncel_tpu_torch.baselines.laet import LearnedTermination
+    from auncel_tpu_torch.eval_harness import (
+        bound, compare, effect_error, effect_time, overhead)
+
+    here, saved_cache = os.getcwd(), os.environ.get("BENCH_CACHE")
+    totals = {}
+
+    def add(n):
+        for k, v in n.items():
+            totals[k] = totals.get(k, 0) + v
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        os.chdir(tmp)
+        os.environ["BENCH_CACHE"] = os.path.join(tmp, "bench_cache")
+        try:
+            res, n, dt = driven("bound", lambda: bound.run(
+                EVAL_DB, ts=EVAL_TS, ses=EVAL_SES, input_k=K,
+                error_bound=EPS, nlist=EVAL_NLIST, profile_size=EVAL_PROFILE,
+                batch_latency=EVAL_LATENCY, log_dir=tmp))
+            add(n)
+            lat = np.loadtxt(os.path.join(
+                tmp, f"Auncel_Latency_{EVAL_DB}_{K}_{round(EPS * 100)}.log"))
+            log(f"[eval bound] {EVAL_DB} ts={EVAL_TS} ses={EVAL_SES} "
+                f"profile={EVAL_PROFILE}: qps={res['qps']:.1f} multipler="
+                f"{res['multipler']:.3f} std_m={res['std_m']} mean "
+                f"n_scanned={res['mean_nscan']:.2f} worst recall@{K}="
+                f"{res['min_recall']:.3f} bound_ok={res['bound_ok']}; "
+                f"batch-1 over {lat.size}: mean={lat.mean() * 1e3:.2f} ms "
+                f"p99={np.quantile(lat, 0.99) * 1e3:.2f} ms; multi-row "
+                f"rows {res['multirow_rows']} [{card}]")
+            check(res["bound_ok"], f"[eval bound] worst recall "
+                  f"{res['min_recall']}")
+            check(n["rowscan_scores"] > 0 and n["scan_scores"] > 0,
+                  f"[eval bound] launches {n}")
+
+            with last_call(LearnedTermination, "search") as lt_search, \
+                    last_call(LearnedTermination, "_features") as lt_feat, \
+                    last_call(ParameterSpace, "tune_for_bound") as tuned:
+                rows, n, dt = driven("compare", lambda: compare.run(
+                    EVAL_DB, ts=EVAL_TS, ses=EVAL_SES, input_k=K,
+                    error_bound=EPS, nlist=EVAL_NLIST,
+                    profile_size=EVAL_PROFILE, log_dir=tmp))
+            add(n)
+            for r in rows:
+                log(f"[eval compare] {r['system']}: qps={r['qps']:.1f} mean "
+                    f"probes={r['mean_probes']:.2f} worst recall@{K}="
+                    f"{r['min_recall']:.3f} mean recall@{K}="
+                    f"{r['mean_recall']:.4f} [{card}]")
+            ps = tuned["self"]
+            n_cands = len(ps.candidate_nprobes())
+
+            def route(batch, nprobe):
+                return ("dense" if ps.index.dense_route(batch, nprobe)
+                        else "gathers (K1)")
+            for i, p in enumerate(ps.ops.all_pts):
+                nprobe = int(p.key.split("=")[1])
+                log(f"[eval compare] ELP sweep {i // n_cands + 1} {p.key}: "
+                    f"worst recall@{K} on the train slice {p.perf:.3f}, "
+                    f"{p.cost * 1e6:.2f} us a query at batch {EVAL_TS} "
+                    f"({route(EVAL_TS, nprobe)}); at batch {EVAL_SES}: "
+                    f"{route(EVAL_SES, nprobe)}")
+            auncel = next(r for r in rows if r["system"] == "auncel")
+            check(auncel["min_recall"] >= 1.0 - EPS,
+                  f"[eval compare] auncel worst recall {auncel['min_recall']}")
+            check(n["rowscan_scores"] > 0 and n["scan_scores"] > 0,
+                  f"[eval compare] launches {n}")
+            with uncounted():
+                kernels = eval_kernels(lt_search, lt_feat, card)
+
+            res, n, dt = driven("effect_error", lambda: effect_error.run(
+                EVAL_SMALL_DB, ts=EVAL_SMALL_TS, ses=EVAL_SMALL_SES,
+                input_k=K, nlist=EVAL_NLIST, log_dir=tmp))
+            add(n)
+            log(f"[eval effect_error] {EVAL_SMALL_DB}: satisfaction of the "
+                f"mixed bounds {res['satisfaction']:.4f} [{card}]")
+            check(res["satisfaction"] >= 0.9,
+                  f"[eval effect_error] satisfaction {res['satisfaction']}")
+
+            res, n, dt = driven("effect_time", lambda: effect_time.run(
+                EVAL_SMALL_DB, ts=EVAL_SMALL_TS, ses=EVAL_SMALL_SES,
+                input_k=K, nlist=EVAL_NLIST, log_dir=tmp))
+            add(n)
+            log(f"[eval effect_time] {EVAL_SMALL_DB}: within budget by the "
+                f"cost model {res['within_budget']:.4f}, measured less the "
+                f"dispatch floor ({res['dispatch_floor_ms']:.3f} ms) "
+                f"{res['within_budget_measured']:.4f} over "
+                f"{len(res['sample_qids'])} queries; model median rel err "
+                f"{res['model_rel_err']:.3f}, corr {res['model_corr']:.3f}; "
+                f"refit {res['refit_per_probe_ms'] * 1e3:.2f} us a probe "
+                f"(median rel err {res['refit_rel_err']:.3f}) [{card}]")
+
+            res, n, dt = driven("overhead", lambda: overhead.run(
+                EVAL_SMALL_DB, ts=EVAL_SMALL_TS, ses=EVAL_SMALL_SES,
+                input_k=K, error_bound=EPS, nlist=EVAL_NLIST))
+            add(n)
+            log(f"[eval overhead] {EVAL_SMALL_DB}: with ELP "
+                f"{res['with_elp'] * 1e3:.2f} ms, without "
+                f"{res['without_elp'] * 1e3:.2f} ms a window of "
+                f"{EVAL_SMALL_SES}, "
+                f"overhead {res['overhead'] * 100:.1f} % [{card}]")
+        finally:
+            os.chdir(here)
+            if saved_cache is None:
+                os.environ.pop("BENCH_CACHE", None)
+            else:
+                os.environ["BENCH_CACHE"] = saved_cache
+    log(f"[eval] launches over the phase: {totals}")
+    return {"launches": totals, "kernels": kernels}
+
+
+def eval_kernels(lt_search: dict, lt_feat: dict, card: str) -> dict:
+    """K1 at the largest row scan of LAET's last search (the held-out
+    queries at its worst-case multiplier) and K2 at LAET's feature call
+    (one probe of the padded lists for each training query), each against
+    its plain version within 1e-5 of q_sq + db_sq."""
+    lt = lt_search["self"]
+    q, k = lt_search["args"][:2]
+    calls = record_row_scans(lambda: lt.search(q, k))
+    big = max(calls, key=lambda c: int((c[1][6] >= 0).sum()))
+    out = {"rowscan_scores": k1_compare(
+        f"LAET search, the largest of {len(calls)} row scans ({big[0]})",
+        big[1], big[2], card, reps=10, terms_tol=True, codec=big[3],
+        label="k1 eval")}
+    fq = lt_feat["args"][0]
+    k2_calls = record_row_scans(lambda: lt._features(fq), "scan_scores")
+    check(len(k2_calls) == 1, f"LAET's features made {len(k2_calls)} K2 "
+          "calls, not 1")
+    c = k2_calls[0]
+    out["scan_scores"] = k2_compare(
+        f"LAET features (B x n_slots {tuple(c[1][6].shape)})", c[1], c[2],
+        card, reps=10, terms_tol=True, codec=c[3], label="k2 eval")
+    return out
+
+
 def profile_search(es, out_dir: str, card: str, label: str) -> None:
     """Kernel-time breakdown of one batched and one batch-1 search."""
     for name, size in (("batched", N_TEST_Q), ("batch1", 1)):
@@ -1661,6 +1861,11 @@ def main() -> int:
     sq8 = sq8_10m_phase(card, profile_dir)
     log(f"[total] {time.perf_counter() - t0:.1f} s (the 10M phase "
         f"{time.perf_counter() - t10:.1f} s)")
+    torch.cuda.empty_cache()
+    t_eval = time.perf_counter()
+    ev = eval_phase(card)
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [eval] phase "
+        f"{time.perf_counter() - t_eval:.1f} s)")
 
     def launches(name):
         return mr_launches[name] + pad_launches[name]
@@ -1687,7 +1892,13 @@ def main() -> int:
          "library_ms": None, **numbers(sq8["kernels"]["rowscan_scores"])},
         {"name": "scan_scores sq8", "route": "cuda", "source": k2_src,
          "replaces": k2_tpu, "launches": sq8["launches"]["scan_scores"],
-         "library_ms": None, **numbers(sq8["kernels"]["scan_scores"])}]
+         "library_ms": None, **numbers(sq8["kernels"]["scan_scores"])},
+        {"name": "rowscan_scores eval", "route": "cuda", "source": k1_src,
+         "replaces": k1_tpu, "launches": ev["launches"]["rowscan_scores"],
+         "library_ms": None, **numbers(ev["kernels"]["rowscan_scores"])},
+        {"name": "scan_scores eval", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": ev["launches"]["scan_scores"],
+         "library_ms": None, **numbers(ev["kernels"]["scan_scores"])}]
     # the other codecs run only in the comparisons (no main-path launch)
     for (name, codec), res in codecs.items():
         if codec == "sq8":
