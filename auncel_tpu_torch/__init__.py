@@ -11,12 +11,20 @@ from ``exact_search``, ``ErrorSys.sys_train``/``set_topk``/``set_queries``/
 scan of the rows (dots, scores and masks) runs in the hand-written CUDA
 kernel of ``kernels/rowscan.py`` on a CUDA device and in its plain PyTorch
 version on the CPU.
+
+The index layer a user reaches through ``index_factory``: ``FlatIndex``,
+IVF on every ported storage (f32, bf16, SQ, and PQ on the padded layout,
+whose probes K2 scores, ``kernels/scan_scores.py``), ``IndexPQ``, the
+transforms, ``IndexRefineFlat`` and ``IndexIDMap``.
 """
 
 from auncel_tpu_torch.types import Metric
+from auncel_tpu_torch.index.flat import FlatIndex
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
+from auncel_tpu_torch.index.factory import index_factory
 from auncel_tpu_torch.profile.error_sys import ErrorSys
 
 __version__ = "0.1.0"
 
-__all__ = ["Metric", "IVFFlatIndex", "ErrorSys", "__version__"]
+__all__ = ["Metric", "FlatIndex", "IVFFlatIndex", "index_factory",
+           "ErrorSys", "__version__"]

@@ -11,9 +11,11 @@ fixed nprobe: the "one global knob" that Auncel's per-query bounds beat.
 ``ParameterSpace.explore`` sweeps nprobe on the index's own device.
 ``MatrixStats`` reports dataset diagnostics.
 
-The port's ``IVFFlatIndex`` exposes the knobs ``nprobe`` and
-``max_codes``; a knob of an index family the port does not serve (HNSW,
-PQ, refine, IVFPQR) raises ``ValueError``.
+The knobs: ``nprobe`` and ``max_codes`` of an ``IVFFlatIndex``, the
+polysemous ``ht`` of an ``IVFFlatIndex`` or ``IndexPQ``, and ``k_factor``
+of an ``IndexRefineFlat`` (whose other knobs reach its base); a knob of an
+index family the port does not serve yet (HNSW's ``efSearch``, IVFPQR's
+``k_factor``) raises ``ValueError``.
 """
 
 import time
@@ -21,7 +23,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from auncel_tpu_torch.index.flat import IndexRefineFlat
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
+from auncel_tpu_torch.index.pq_index import IndexPQ
 from auncel_tpu_torch.types import Metric
 
 
@@ -98,10 +102,20 @@ def intersection_at_r(I: np.ndarray, gt_I: np.ndarray, R: int) -> float:
 
 def set_index_parameter(index, name: str, value) -> None:
     """One knob (reference ParameterSpace::set_index_parameter,
-    AutoTune.cpp:455-520): ``nprobe`` and ``max_codes`` (infinity means
-    unlimited, 0) of an ``IVFFlatIndex``."""
+    AutoTune.cpp:455-520): ``k_factor`` of an ``IndexRefineFlat`` (any
+    other knob goes to its base), ``nprobe`` and ``max_codes`` (infinity
+    means unlimited, 0) of an ``IVFFlatIndex``, and ``ht`` (or
+    ``polysemous_ht``) of an ``IVFFlatIndex`` or ``IndexPQ``."""
+    if isinstance(index, IndexRefineFlat):
+        if name == "k_factor":
+            index.k_factor = float(value)
+            return
+        return set_index_parameter(index.base, name, value)
     if name == "nprobe" and isinstance(index, IVFFlatIndex):
         index.nprobe = int(value)
+    elif (name in ("ht", "polysemous_ht")
+          and isinstance(index, (IndexPQ, IVFFlatIndex))):
+        index.polysemous_ht = int(value)
     elif name == "max_codes" and isinstance(index, IVFFlatIndex):
         index.max_codes = 0 if not np.isfinite(value) else int(value)
     else:
@@ -119,10 +133,18 @@ def set_index_parameters(index, description: str) -> None:
         set_index_parameter(index, name.strip(), float(value))
 
 
+def _ht_range(nbits: int) -> list[int]:
+    """The polysemous thresholds swept over codes of ``nbits`` bits."""
+    return sorted({nbits // 8, nbits // 4, nbits // 2, 3 * nbits // 4,
+                   nbits})
+
+
 class ParameterSpace:
     """Parameter sweep with the worst-case criterion over the knobs the
     index exposes (reference ParameterSpace::initialize,
-    AutoTune.cpp:353-408): nprobe for the port's IVF-Flat index."""
+    AutoTune.cpp:353-408): nprobe for IVF, ht for polysemous PQ (IVF or
+    flat), k_factor for the refine wrapper, cartesian over the wrapper's
+    knob and its base's."""
 
     def __init__(self, index):
         self.index = index
@@ -138,9 +160,19 @@ class ParameterSpace:
         cands.append(nlist)  # the forced full-scan point
         return cands
 
-    def parameter_ranges(self) -> list[tuple[str, list]]:
-        if isinstance(self.index, IVFFlatIndex):
-            return [("nprobe", self.candidate_nprobes())]
+    def parameter_ranges(self, index=None) -> list[tuple[str, list]]:
+        index = index if index is not None else self.index
+        if isinstance(index, IndexRefineFlat):
+            return ([("k_factor", [1, 2, 4, 8])]
+                    + self.parameter_ranges(index.base))
+        if isinstance(index, IVFFlatIndex):
+            dims = [("nprobe", self.candidate_nprobes())]
+            if index.polysemous:
+                # the reference sweeps ht on IVFPQ too
+                dims.append(("ht", _ht_range(8 * int(index.storage[2:]))))
+            return dims
+        if isinstance(index, IndexPQ) and index.polysemous:
+            return [("ht", _ht_range(8 * index.M))]
         return []
 
     def explore(self, xq: np.ndarray, gt_D: np.ndarray, k: int,

@@ -6,8 +6,8 @@ Each function takes the JAX package's state as a dict of numpy arrays
 ``TraceSet`` or LAET ``_MLP``; a nested ``rows`` dict for
 ``MultiRowArrays``), so this module imports no jax. The LAET regressor's
 weights are the ones carried across. The storage codec comes across as it
-is: float32 or bfloat16 vectors, or SQ codes with their range. With them
-both packages compute on identical state. The tensors go to the card unless
+is: float32 or bfloat16 vectors, SQ codes with their range, or PQ codes
+with their codebooks. With them both packages compute on identical state. The tensors go to the card unless
 ``device`` says otherwise.
 """
 
@@ -43,15 +43,16 @@ def _storage(a) -> torch.Tensor:
 
 def ivf_arrays_from_numpy(state: dict, device="cuda") -> IVFArrays:
     """IVFArrays from the JAX package's IVFArrays fields: float32 or
-    bfloat16 vectors, or uint8 SQ codes with ``sq_scale`` and ``sq_bias``.
-    PQ state raises ``NotImplementedError``."""
-    if state.get("pq_codebooks") is not None:
-        raise NotImplementedError("pq_codebooks: PQ storage is not ported")
+    bfloat16 vectors, uint8 SQ codes with ``sq_scale`` and ``sq_bias``, or
+    uint8 PQ codes with ``pq_codebooks``. The JAX package marks residual PQ
+    with ``pq_residual`` = ``()`` (None otherwise); the port with True."""
     fields = {}
     for f in IVFArrays._fields:
         v = state.get(f)
         if f == "db":
             fields[f] = _storage(v).to(device)
+        elif f == "pq_residual":
+            fields[f] = v is not None
         elif v is not None:
             fields[f] = _tensor(f, v, device)
     return IVFArrays(**fields)

@@ -27,6 +27,25 @@
 // coded tile is one contiguous run of bytes, copied with 16-byte cp.async
 // where its address allows, else 4-byte, else byte by byte.
 //
+// Product quantization (worklist.cuh's PQ codec): db holds M uint8 codes a
+// slot and pq_books the [M, 256, d / M] codebook. The XLA scan decodes a
+// gathered block by a codebook gather and contracts it
+// (auncel_tpu/ops/pq.py:5-11, index/scan.py:226-247); here every block
+// copies the codebook (1 KB a dimension: 96 KB at d 96) into shared memory
+// once, before its first item, and the dot units gather each element from
+// it. With centroids (residual PQ, the codes approximate x - c_l) the
+// block stages the residual query q_b - c_l instead of q_b, one fp32
+// subtraction an element, and sums ||q_b - c_l||^2 while it does, which
+// takes q_sq's place in the L2 score; for IP it stages q_b and <c_l, q_b>,
+// which is added to the dot. A PQ call always takes the worklist (no
+// direct mode), so a persistent grid loads the codebook once a block
+// rather than once a span. On PQ codes this simple design is bound by the
+// decode, not by device memory: d shared-memory gathers a slot (four
+// scalar gathers a float4 when dsub % 4 != 0), with no reuse across
+// queries when a list has one query; on an H100 it reads PQ16 codes at
+// about 2 % of the byte bound (PERF.md). Per-(query, list) ADC tables are
+// the next design.
+//
 // What bounds it: device-memory bandwidth. The least traffic is each
 // distinct probed list's live slots read once (the slot's stored bytes,
 // 4d for float32 and d for SQ8, plus norm and id) and 8 bytes of output
@@ -81,17 +100,25 @@ namespace {
 constexpr int kTilesPerItem = 8;
 constexpr int kNormStages = 3;        // norms and ids live one step longer
 
+// Bytes of a block's PQ codebook of dimension d (256 codewords a subspace).
+__host__ __device__ inline size_t pq_book_bytes(int d) {
+  return (size_t)256 * d * sizeof(float);
+}
+
 Config scan_config(int nlist, int cap, int d, int slot_bytes,
-                   long long n_work) {
-  Config c = make_config(nlist, cap, d, slot_bytes, n_work, kTilesPerItem);
-  // ring, queries, dots, norms and ids of the ring, q_sq and rows
-  c.smem = (size_t)kStages * c.stage_bytes +
+                   long long n_work, bool pq = false) {
+  Config c = make_config(nlist, cap, d, slot_bytes, n_work, kTilesPerItem,
+                         !pq);
+  // (PQ: the codebook,) ring, queries, dots, norms and ids of the ring,
+  // q_sq and rows
+  c.smem = (pq ? pq_book_bytes(d) : 0) + (size_t)kStages * c.stage_bytes +
            4 * ((size_t)c.chunk * d + (size_t)c.chunk * c.tile +
                 2 * kNormStages * c.tile + 2 * c.chunk);
   return c;
 }
 
 struct Smem {
+  float* books;         // PQ: [M][256][dsub] (else empty)
   unsigned char* ring;  // [kStages][stage_bytes]: tile stored slots each
   float* qs;      // [chunk][d]
   float* dots;    // [chunk][tile]
@@ -101,9 +128,11 @@ struct Smem {
   int* rows;      // [chunk]
 };
 
-__device__ __forceinline__ Smem carve(const Params& p, unsigned char* base) {
+__device__ __forceinline__ Smem carve(const Params& p, unsigned char* base,
+                                      size_t book_bytes) {
   Smem s;
-  s.ring = base;
+  s.books = reinterpret_cast<float*>(base);
+  s.ring = base + book_bytes;
   s.qs = reinterpret_cast<float*>(s.ring + kStages * p.stage_bytes);
   s.dots = s.qs + p.chunk * p.d;
   s.sq = s.dots + p.chunk * p.tile;
@@ -145,11 +174,57 @@ __device__ __forceinline__ void issue_tile(const Params& p, const Smem& s,
   }
 }
 
+// The block's copy of the PQ codebook (n floats), then a barrier.
+__device__ __forceinline__ void load_books(const float* src, float* dst,
+                                           int n) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && n % 4 == 0) {
+    for (int i = threadIdx.x; i < n / 4; i += kThreads)
+      reinterpret_cast<float4*>(dst)[i] =
+          __ldg(reinterpret_cast<const float4*>(src) + i);
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = __ldg(src + i);
+  }
+  __syncthreads();
+}
+
+// Residual PQ: the staged query k of the item on list l is q_b - c_l with
+// its squared norm in qsq[k] (L2), or q_b with <c_l, q_b> in qsq[k] (IP).
+// One warp a query: the lanes take strided elements and a butterfly adds
+// their partial sums.
+__device__ __forceinline__ void stage_residual(const Params& p, const Smem& s,
+                                               int l, int nq) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = p.d;
+  const float* cl = p.centroids + (long long)l * d;
+  for (int k = warp; k < nq; k += kWarps) {
+    const float* src = p.q + (long long)(s.rows[k] / p.n_slots) * d;
+    float* dst = s.qs + k * d;
+    float acc = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float qv = __ldg(src + i), cv = __ldg(cl + i);
+      if (p.is_l2) {
+        const float r = __fsub_rn(qv, cv);
+        dst[i] = r;
+        acc = fmaf(r, r, acc);
+      } else {
+        dst[i] = qv;
+        acc = fmaf(cv, qv, acc);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) s.qsq[k] = acc;
+  }
+}
+
 // Scores and ids of list l's live slots [c_begin, c_end) for nq entries
-// (ents: b * n_slots + s), each slot read from device memory once.
-template <typename Codec, bool kVec4>
-__device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
-                          int c_end, int nq, const int* ents) {
+// (ents: b * n_slots + s), each slot read from device memory once. kRes:
+// residual PQ codes (stage_residual); `book` is the PQ codec's codebook.
+template <typename Codec, bool kVec4, bool kRes>
+__device__ void scan_item(const Params& p, const Smem& s, const PQBook& book,
+                          int l, int c_begin, int c_end, int nq,
+                          const int* ents) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float worst = p.is_l2 ? CUDART_INF_F : -CUDART_INF_F;
   const long long list_off = (long long)l * p.cap;
@@ -173,14 +248,19 @@ __device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
     s.qsq[threadIdx.x] = p.q_sq[e / p.n_slots];
   }
   __syncthreads();
-  for (int k = warp; k < nq; k += kWarps) {
-    const float* src = p.q + (long long)(s.rows[k] / p.n_slots) * d;
-    float* dst = s.qs + k * d;
-    if (kVec4) {
-      for (int i = lane; i < (d >> 2); i += 32)
-        cp_async16(dst + 4 * i, src + 4 * i);
-    } else {
-      for (int i = lane; i < d; i += 32) cp_async4(dst + i, src + i);
+  if constexpr (kRes) {
+    // plain stores, visible after the barrier that opens tile 0
+    stage_residual(p, s, l, nq);
+  } else {
+    for (int k = warp; k < nq; k += kWarps) {
+      const float* src = p.q + (long long)(s.rows[k] / p.n_slots) * d;
+      float* dst = s.qs + k * d;
+      if (kVec4) {
+        for (int i = lane; i < (d >> 2); i += 32)
+          cp_async16(dst + 4 * i, src + 4 * i);
+      } else {
+        for (int i = lane; i < d; i += 32) cp_async4(dst + i, src + i);
+      }
     }
   }
   cp_async_commit();
@@ -196,7 +276,7 @@ __device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
     // dots: units of 32 (slot, query) pairs, round robin over the warps
     tile_dots<Codec, kVec4>(p, s.qs, s.dots,
                             s.ring + (t % kStages) * p.stage_bytes, n_live,
-                            nq);
+                            nq, book);
     __syncthreads();
     if (t + 2 < n_tiles) issue(t + 2);
     cp_async_commit();
@@ -213,11 +293,12 @@ __device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
         if (id >= 0) {
           const float dot = s.dots[k * p.tile + c];
           // (q_sq + db_sq) - 2 * dot, rounded step by step as the plain
-          // version does; 2 * dot is exact, so no contraction can change it
+          // version does; 2 * dot is exact, so no contraction can change it.
+          // Residual PQ: q_sq holds ||q - c_l||^2 (L2) or <c_l, q> (IP)
           score = p.is_l2
                       ? fmaxf(__fsub_rn(__fadd_rn(q_sq, sq[c]), 2.0f * dot),
                               0.0f)
-                      : dot;
+                      : (kRes ? __fadd_rn(q_sq, dot) : dot);
         }
         p.scores[base + c] = score;
         p.ids[base + c] = id >= 0 ? id : -1;
@@ -227,28 +308,34 @@ __device__ void scan_item(const Params& p, const Smem& s, int l, int c_begin,
   __syncthreads();  // the next item reuses the buffers
 }
 
-template <typename Codec, bool kVec4>
+template <typename Codec, bool kVec4, bool kRes>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_lists_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem s = carve(p, smem);
+  constexpr bool kPQ = IsPQ<Codec>::value;
+  const Smem s = carve(p, smem, kPQ ? pq_book_bytes(p.d) : 0);
+  PQBook book{nullptr, 1};
+  if constexpr (kPQ) {
+    load_books(p.pq_books, s.books, 256 * p.d);
+    book = PQBook{s.books, p.d / p.slot_bytes};
+  }
   run_units(p, [&](int l, int c_begin, int c_end, int nq, const int* ents) {
-    scan_item<Codec, kVec4>(p, s, l, c_begin, c_end, nq, ents);
+    scan_item<Codec, kVec4, kRes>(p, s, book, l, c_begin, c_end, nq, ents);
   });
 }
 
-template <typename Codec, bool kVec4>
+template <typename Codec, bool kVec4, bool kRes = false>
 cudaError_t launch(const Params& p, const Config& c, int* scratch, int device,
                    cudaStream_t stream) {
   static int done_smem[64], occupancy[64];
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   int per_sm = 0;
   const cudaError_t err =
-      prepare((const void*)scan_lists_kernel<Codec, kVec4>, c.smem,
+      prepare((const void*)scan_lists_kernel<Codec, kVec4, kRes>, c.smem,
               done_smem[device], occupancy[device], &per_sm);
   if (err != cudaSuccess) return err;
-  return launch_units(scan_lists_kernel<Codec, kVec4>, per_sm, p, c, scratch,
-                      device, stream);
+  return launch_units(scan_lists_kernel<Codec, kVec4, kRes>, per_sm, p, c,
+                      scratch, device, stream);
 }
 
 template <typename Codec>
@@ -315,4 +402,51 @@ extern "C" int scan_scores_launch(const void* db, const float* db_sq,
     default: err = launch_codec<SQ6>(p, c, vec4, scratch, device, s);
   }
   return (int)err;
+}
+
+// Ints of device scratch that scan_scores_pq_launch needs for these shapes
+// (codes of m bytes a slot, d % m == 0; never 0: a PQ call always takes the
+// worklist), or -1 when m does not divide d or the shared memory (with the
+// codebook) or the worklist would not fit.
+extern "C" long long scan_scores_pq_scratch_ints(int nlist, int cap, int d,
+                                                 int m, long long n_work) {
+  if (m <= 0 || d % m != 0) return -1;
+  return checked_scratch_ints(scan_config(nlist, cap, d, m, n_work, true),
+                              nlist, n_work);
+}
+
+// Enqueues the scan of PQ codes (m bytes a slot) on `stream` of device
+// `device`: books [m, 256, d / m] f32; centroids [nlist, d] f32 for
+// residual codes, else null. The rest as scan_scores_launch. Returns the
+// first CUDA error of the enqueued launches: 0 on success. Does not
+// synchronise.
+extern "C" int scan_scores_pq_launch(const void* db, const float* db_sq,
+                                     const int* vec_ids,
+                                     const int* list_sizes, const float* q,
+                                     const float* q_sq, const int* lists,
+                                     float* scores, int* ids, int* scratch,
+                                     const float* books,
+                                     const float* centroids,
+                                     long long n_work, int n_slots, int nlist,
+                                     int cap, int d, int m, int is_l2,
+                                     int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_work <= 0 || cap <= 0) return 0;
+  if (books == nullptr || scratch == nullptr ||
+      scan_scores_pq_scratch_ints(nlist, cap, d, m, n_work) < 0)
+    return (int)cudaErrorInvalidValue;
+  const Config c = scan_config(nlist, cap, d, m, n_work, true);
+  Params p = make_params(db, nullptr, nullptr, db_sq, vec_ids, list_sizes, q,
+                         q_sq, lists, scores, ids, n_work, n_slots, nlist,
+                         cap, d, is_l2, c);
+  p.pq_books = books;
+  p.centroids = centroids;
+  const bool vec4 = vec4_dots(nullptr, q, nullptr, nullptr, d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (centroids != nullptr)
+    return (int)(vec4 ? launch<PQ, true, true>(p, c, scratch, device, s)
+                      : launch<PQ, false, true>(p, c, scratch, device, s));
+  return (int)(vec4 ? launch<PQ, true, false>(p, c, scratch, device, s)
+                    : launch<PQ, false, false>(p, c, scratch, device, s));
 }

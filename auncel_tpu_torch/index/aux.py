@@ -1,12 +1,26 @@
-"""Search counters (port of ``SearchStats``/``ivf_stats`` in
-``auncel_tpu/index/aux.py``; reference ``indexIVF_stats``,
-IndexIVF.h:361-374). ``IVFFlatIndex.search`` adds to ``ivf_stats``.
+"""Search counters and the range-search result (port of ``SearchStats``/
+``ivf_stats`` and ``RangeSearchResult`` in ``auncel_tpu/index/aux.py``;
+reference ``indexIVF_stats``, IndexIVF.h:361-374).
+``IVFFlatIndex.search`` adds to ``ivf_stats``; ``FlatIndex.range_search``
+returns a ``RangeSearchResult``.
 
-Not ported yet: ``range_search``, ``remove_ids``, the ``IDSelector``
-family and ``InterruptCallback`` (``ROADMAP.md`` queue 1 item 7).
+Not ported yet: the IVF ``range_search``, ``remove_ids``, the
+``IDSelector`` family and ``InterruptCallback`` (``ROADMAP.md`` queue 1
+item 7).
 """
 
 from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class RangeSearchResult:
+    """CSR-style container (reference AuxIndexStructures.h:31): query i's
+    hits are labels[lims[i]:lims[i+1]] / distances[...]."""
+    lims: np.ndarray        # [nq + 1] int64
+    labels: np.ndarray      # [nres] int64
+    distances: np.ndarray   # [nres] float32
 
 
 @dataclass

@@ -1,0 +1,116 @@
+"""Index factory strings (port of ``auncel_tpu/index/factory.py``; the
+reference grammar of ``AutoTune.cpp:741-960``).
+
+Served: the transform prefixes ``PCAn``, ``PCARn``, ``OPQm``, ``RR`` and
+``L2norm``; the cells ``Flat``, ``PQm``, ``SQ8``, ``SQ4``, ``SQ6``,
+``SQfp16`` and ``SQbf16`` (fp16 maps to bf16, as in the JAX package);
+``IVFn,{Flat,SQ8,SQ4,SQ6,SQfp16,SQbf16,PQm}``; and the ``,RFlat`` and
+``IDMap`` wrappers. A description the JAX package builds but the port does
+not yet raises ``NotImplementedError`` naming its ``ROADMAP.md`` item;
+anything else raises as the JAX package does.
+"""
+
+import re
+
+from auncel_tpu_torch.index.base import Index
+from auncel_tpu_torch.index.flat import (FlatIndex, IndexRefineFlat,
+                                         IndexScalarQuantizer)
+from auncel_tpu_torch.index.ivf import IVFFlatIndex
+from auncel_tpu_torch.index.meta import IndexIDMap
+from auncel_tpu_torch.index.pq_index import IndexPQ
+from auncel_tpu_torch.index.transform import (
+    IndexPreTransform, NormalizationTransform, OPQMatrix, PCAMatrix,
+    RandomRotationMatrix)
+from auncel_tpu_torch.types import Metric
+
+# cells of the JAX package's grammar that the port does not build yet
+_NOT_PORTED = (
+    (r"HNSW.*", "HNSW indexes (index/hnsw.py)"),
+    (r"LSH(\d+)?(r)?(t)?", "LSH (index/lsh.py)"),
+    (r"IVF\d+,SH\d*", "IVF spectral hashing (index/lsh.py)"),
+    (r"IVF\d+,PQ\d+\+\d+", "IVFPQR (index/ivfpqr.py)"),
+    (r"IMI2x\d+,\w+", "the IMI coarse quantizer (index/imi.py)"),
+    (r"IVF\d+_HNSW\d+,\w+", "the HNSW coarse quantizer (index/hnsw.py)"),
+)
+
+_SQ_CELLS = {"SQ8": "sq8", "SQ4": "sq4", "SQ6": "sq6", "SQfp16": "bf16",
+             "SQbf16": "bf16"}
+
+
+def index_factory(d: int, description: str, metric: Metric = Metric.L2,
+                  device="cuda") -> Index:
+    """The index a factory string describes, on ``device``."""
+    metric = Metric.parse(metric)
+    parts = [p.strip() for p in description.strip().split(",")]
+
+    # leading transform prefixes (AutoTune.cpp:760-800)
+    transforms = []
+    cur_d = d
+    while parts:
+        p = parts[0]
+        m = re.fullmatch(r"PCA(R?)(\d+)", p)
+        if m:
+            transforms.append(PCAMatrix(cur_d, int(m.group(2)),
+                                        random_rotation=bool(m.group(1)),
+                                        device=device))
+            cur_d = int(m.group(2))
+        elif re.fullmatch(r"OPQ(\d+)", p):
+            transforms.append(OPQMatrix(cur_d, int(p[3:]), device=device))
+        elif p == "L2norm":
+            transforms.append(NormalizationTransform(cur_d))
+        elif re.fullmatch(r"RR(\d+)?", p):
+            transforms.append(RandomRotationMatrix(cur_d))
+        else:
+            break
+        parts.pop(0)
+
+    # "IDMap" wraps the final index for user ids (AutoTune.cpp:812-816);
+    # a trailing "RFlat" re-ranks exactly (AutoTune.cpp:911-918)
+    want_idmap = "IDMap" in parts
+    parts = [p for p in parts if p != "IDMap"]
+    want_rflat = bool(parts) and parts[-1] == "RFlat"
+    if want_rflat:
+        parts = parts[:-1]
+
+    desc = ",".join(parts)
+    for pattern, what in _NOT_PORTED:
+        if re.fullmatch(pattern, desc):
+            raise NotImplementedError(
+                f"factory description {description!r}: {what} is not "
+                f"ported yet (ROADMAP.md queue 1 item 7)")
+    if desc == "Flat":
+        index: Index = FlatIndex(cur_d, metric, device=device)
+    elif re.fullmatch(r"PQ(\d+)", desc):
+        index = IndexPQ(cur_d, M=int(desc[2:]), metric=metric, device=device)
+    elif desc in _SQ_CELLS:
+        index = IndexScalarQuantizer(cur_d, qtype=_SQ_CELLS[desc],
+                                     metric=metric, device=device)
+    else:
+        m = re.fullmatch(r"IVF(\d+),(\w+)", desc)
+        if not m:
+            raise NotImplementedError(
+                f"factory description {description!r}")
+        nlist, cell = int(m.group(1)), m.group(2)
+        if cell == "Flat":
+            storage = "f32"
+        elif cell in _SQ_CELLS:
+            storage = _SQ_CELLS[cell]
+        elif re.fullmatch(r"PQ\d+", cell):
+            m_sub = int(cell[2:])
+            if cur_d % m_sub != 0:
+                raise ValueError(f"PQ{m_sub}: d={cur_d} not divisible")
+            storage = f"pq{m_sub}"
+        else:
+            raise NotImplementedError(
+                f"IVF cell type {cell!r} not implemented yet (reference "
+                f"grammar: AutoTune.cpp:741-960)")
+        index = IVFFlatIndex(cur_d, nlist, metric, device=device,
+                             storage=storage)
+
+    if want_rflat:
+        index = IndexRefineFlat(index)
+    if want_idmap:
+        index = IndexIDMap(index)
+    if transforms:
+        return IndexPreTransform(index, transforms)
+    return index

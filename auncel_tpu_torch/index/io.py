@@ -1,24 +1,32 @@
-"""Index files (port of the IVF-Flat part of ``auncel_tpu/index/io.py``).
+"""Index files (port of the Flat and IVF-Flat parts of
+``auncel_tpu/index/io.py``).
 
 The layout is the JAX package's: one ``.npz`` holding a JSON ``header``
-(version, kind, d, metric, nlist, trained, ntotal, storage, and for the
-dedup kind the ``dup`` map) and the payload ``centroids`` (when trained)
-and, when vectors are stored, ``db`` (the stored vectors decoded to
-float32, [nlist, cap, d]), ``vec_ids``, ``list_sizes`` and, for SQ
-storage, ``sq_scale``/``sq_bias``. A file either package writes loads in
-the other: an SQ index reloads with its saved range and so re-encodes to
-the same codes, and a trained-but-empty file (centroids only) is the
-trained-quantizer cache of the evaluation harness.
+(version, kind, d, metric, and for the IVF kinds nlist, trained, ntotal,
+storage, and for the dedup kind the ``dup`` map) and the payload: ``xb``
+for the ``Flat`` kind; for the IVF kinds ``centroids`` (when trained) and,
+when vectors are stored, ``db`` (the stored vectors decoded to float32,
+[nlist, cap, d]), ``vec_ids``, ``list_sizes`` and, for SQ storage,
+``sq_scale``/``sq_bias``. A file either package writes loads in the other:
+an SQ index reloads with its saved range and so re-encodes to the same
+codes, a PQ index is written as its decoded vectors with storage "f32" (a
+retrained codebook would not reproduce the codes), and a trained-but-empty
+file (centroids only) is the trained-quantizer cache of the evaluation
+harness. The port writes a residual-PQ index's reconstructions, each
+list's centroid added back; the JAX package writes the decoded residuals
+(``ROADMAP.md`` section 3).
 
-Only the ``IVFFlat`` and ``IVFFlatDedup`` kinds are ported; every other
-kind raises ``NotImplementedError``.
+The ``Flat``, ``IVFFlat`` and ``IVFFlatDedup`` kinds are ported; every
+other kind raises ``NotImplementedError``.
 """
 
 import json
 
 import numpy as np
 
-from auncel_tpu_torch.index.ivf import IVFFlatDedupIndex, IVFFlatIndex
+from auncel_tpu_torch.index.flat import FlatIndex
+from auncel_tpu_torch.index.ivf import (IVFFlatDedupIndex, IVFFlatIndex,
+                                        decoded_db)
 from auncel_tpu_torch.types import Metric
 
 _FORMAT_VERSION = 1
@@ -26,7 +34,6 @@ _FORMAT_VERSION = 1
 # kinds the JAX package writes that the port does not load yet, and the
 # ROADMAP.md item that ports each
 _NOT_PORTED = {
-    "Flat": "queue 1 item 7 (index/flat.py)",
     "IVFPQR": "queue 1 item 7 (ivfpqr.py)",
     "2Layer": "queue 1 item 7 (twolayer.py)",
     "BFlat": "queue 1 item 7 (binary.py)",
@@ -35,19 +42,26 @@ _NOT_PORTED = {
 }
 
 
-def save_index(index: IVFFlatIndex, path: str) -> None:
-    """Write an IVF-Flat (or dedup) index, trained or not, empty or not."""
+def save_index(index, path: str) -> None:
+    """Write a flat index, or an IVF-Flat (or dedup) index, trained or not,
+    empty or not."""
+    if isinstance(index, FlatIndex):
+        header = dict(version=_FORMAT_VERSION, kind="Flat", d=index.d,
+                      metric=index.metric.value)
+        np.savez(path, header=json.dumps(header), xb=index.xb)
+        return
     if not isinstance(index, IVFFlatIndex):
         raise NotImplementedError(
             f"cannot serialize {type(index).__name__}: the port writes "
-            "IVFFlat and IVFFlatDedup files only (ROADMAP.md queue 1 "
+            "Flat, IVFFlat and IVFFlatDedup files only (ROADMAP.md queue 1 "
             "item 7)")
     dedup = isinstance(index, IVFFlatDedupIndex)
+    storage = "f32" if index.storage.startswith("pq") else index.storage
     header = dict(version=_FORMAT_VERSION,
                   kind="IVFFlatDedup" if dedup else "IVFFlat", d=index.d,
                   metric=index.metric.value, nlist=index.nlist,
                   trained=index.is_trained, ntotal=index.ntotal,
-                  storage=index.storage)
+                  storage=storage)
     if dedup:
         header["dup"] = {str(k): v for k, v in index._dup.items()}
     payload = dict(header=json.dumps(header))
@@ -55,7 +69,7 @@ def save_index(index: IVFFlatIndex, path: str) -> None:
         payload["centroids"] = index.centroids
     if index.ntotal:
         a = index.arrays
-        payload["db"] = a.decode_block(a.db).cpu().numpy().astype(np.float32)
+        payload["db"] = decoded_db(a).astype(np.float32)
         payload["vec_ids"] = a.vec_ids.cpu().numpy()
         payload["list_sizes"] = a.list_sizes.cpu().numpy()
         if a.sq_scale is not None:
@@ -64,11 +78,16 @@ def save_index(index: IVFFlatIndex, path: str) -> None:
     np.savez(path, **payload)
 
 
-def load_index(path: str, device="cuda") -> IVFFlatIndex:
+def load_index(path: str, device="cuda"):
     """Read an index file of either package onto ``device``."""
     with np.load(path, allow_pickle=False) as z:
         header = json.loads(str(z["header"]))
         kind = header["kind"]
+        if kind == "Flat":
+            idx = FlatIndex(header["d"], Metric.parse(header["metric"]),
+                            device=device)
+            idx.add(z["xb"])
+            return idx
         if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"index kind {kind!r} is not ported: ROADMAP.md "

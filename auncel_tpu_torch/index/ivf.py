@@ -4,18 +4,25 @@ Lists are packed into a padded ``[nlist, cap, d]`` tensor on ``device``
 (the card, ``"cuda"``, unless the caller passes another; cap = the largest
 list, rounded up to 8; pad slots carry id -1), which the padded engines
 scan, and ``enable_multirow`` keeps the tight row layout the multi-row
-engine scans. Storage: "f32", "bf16", or the scalar quantizers "sq8",
+engine scans. Storage: "f32", "bf16", the scalar quantizers "sq8",
 "sq4", "sq8u", "sq4u", "sq6" and "sq8d" (uint8 codes with a per-dimension
-affine range; every distance is on decoded values). Fixed-nprobe search
-takes the JAX package's routes: the dense crossover on the multi-row
-layout, and the ``max_codes`` budget on both layouts, and adds to the
-``index/aux.py`` counters. Stored vectors come back decoded through the
-codec (``reconstruct`` and its family), ``update_vectors`` repacks with
+affine range), or product quantization "pqM" (M uint8 codes a vector, of
+the residual ``x - centroid[list]`` unless ``pq_residual=False``, with the
+polysemous codebook order when ``polysemous``); every distance is on
+decoded values. PQ storage is served by the padded engines only (K2
+decodes the codes): the multi-row layout refuses it, as the JAX package's
+does. Fixed-nprobe search takes the JAX package's routes: the polysemous
+Hamming filter when ``polysemous_ht`` is set on PQ storage, the dense
+crossover on the multi-row layout, and the ``max_codes`` budget on both
+layouts, and adds to the ``index/aux.py`` counters. Stored vectors come
+back decoded through the codec (``reconstruct`` and its family; residual
+PQ with its list's centroid added back), ``update_vectors`` repacks with
 the SQ range kept, and ``IVFFlatDedupIndex`` stores each distinct vector
-once. Not ported yet: PQ storage and the IMI and HNSW coarse quantizers;
-each raises ``NotImplementedError``.
+once. Not ported yet: the IMI and HNSW coarse quantizers; each raises
+``NotImplementedError``.
 """
 
+import re
 import time
 
 import numpy as np
@@ -24,23 +31,36 @@ import torch
 from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.device import resolve
 from auncel_tpu_torch.index.aux import ivf_stats
+from auncel_tpu_torch.index.base import Index
 from auncel_tpu_torch.index.flat import (
     sq_code_width, sq_encode, sq_pack, sq_train_range)
 from auncel_tpu_torch.index.scan import (
-    IVFArrays, coarse_rank, ivf_full_scan, ivf_search_fixed)
+    IVFArrays, coarse_rank, ivf_full_scan, ivf_search_fixed,
+    ivf_search_fixed_ht)
 from auncel_tpu_torch.index.multirow import (
     MultiRowArrays, build_multirow, multirow_dense_fixed,
     multirow_search_fixed)
 from auncel_tpu_torch.ops.distance import (
     pairwise_ip, pairwise_l2sqr, pairwise_scores, sqnorms)
 from auncel_tpu_torch.ops.kmeans import KmeansParams, kmeans
+from auncel_tpu_torch.ops.pq import PQCodebooks, encode_pq, train_pq
+from auncel_tpu_torch.ops.polysemous import reorder_codebook
 from auncel_tpu_torch.ops.sq import sq_decode_dev, sq_kind
 from auncel_tpu_torch.ops.topk import topk_scores
 
 # scalar-quantized storage codecs (reference ScalarQuantizer QT_* families,
 # IndexScalarQuantizer.h:34-41; "u" = one range for all dims, "d" = direct)
 SQ_STORAGE = ("sq8", "sq4", "sq8u", "sq4u", "sq6", "sq8d")
-STORAGE = ("f32", "bf16") + SQ_STORAGE
+STORAGE = ("f32", "bf16") + SQ_STORAGE   # and "pqM", M subquantizers
+# PQ training sample: at most this many (residual) vectors, as the JAX
+# package's _pack takes
+PQ_TRAIN_MAX = 200_000
+
+
+def pq_subquantizers(storage: str) -> int | None:
+    """M of a "pqM" storage name, else None."""
+    m = re.fullmatch(r"pq(\d+)", storage)
+    return int(m.group(1)) if m else None
 
 
 def _round_up(x: int, m: int) -> int:
@@ -100,24 +120,36 @@ def preserve_sq_range(index) -> None:
                                     a.sq_scale.cpu().numpy())
 
 
-class IVFFlatIndex:
+class IVFFlatIndex(Index):
     INTERDIS_EAGER_MAX = 4096
 
     def __init__(self, d: int, nlist: int, metric: Metric = Metric.L2,
                  device="cuda", kmeans_params: KmeansParams | None = None,
                  cap_quantile: float = 1.0, storage: str = "f32",
                  coarse: str = "kmeans", sq_rangestat: str = "minmax",
-                 sq_rangestat_arg: float = 0.0):
+                 sq_rangestat_arg: float = 0.0, pq_residual: bool = True,
+                 polysemous: bool = False, polysemous_ht: int = 0):
         """``cap_quantile`` < 1 caps list capacity at that quantile of list
         sizes and spills the overflow (farthest from the centroid first) to
         each vector's next-nearest list with room. ``storage`` is one of
-        ``STORAGE``; ``sq_rangestat``/``sq_rangestat_arg`` choose the SQ
-        range statistic (``index/flat.py::sq_train_range``)."""
-        if storage not in STORAGE:
+        ``STORAGE`` ("pqM" for M subquantizers, d % M == 0);
+        ``sq_rangestat``/``sq_rangestat_arg`` choose the SQ range
+        statistic (``index/flat.py::sq_train_range``). PQ storage:
+        ``pq_residual`` encodes ``x - centroid[list]`` (the reference IVFPQ
+        default), ``polysemous`` reorders each codebook so that code
+        Hamming distance tracks codeword distance, and ``polysemous_ht`` >
+        0 filters fixed-nprobe search by Hamming distance (0: off,
+        IndexPQ.h:24)."""
+        M = pq_subquantizers(storage)
+        if storage not in STORAGE and M is None:
             raise NotImplementedError(
-                f"storage {storage!r}: the port serves {STORAGE}")
+                f"storage {storage!r}: the port serves {STORAGE} and "
+                f"'pqM'")
         if storage in SQ_STORAGE:
             sq_code_width(d, storage)  # d divisibility check
+        if M is not None and (M <= 0 or d % M):
+            raise ValueError(f"storage {storage!r}: d={d} is not divisible "
+                             f"by M={M}")
         if coarse != "kmeans":
             raise NotImplementedError(
                 f"coarse quantizer {coarse!r}: only 'kmeans' is ported")
@@ -128,6 +160,9 @@ class IVFFlatIndex:
         self.storage = storage
         self.sq_rangestat = sq_rangestat
         self.sq_rangestat_arg = float(sq_rangestat_arg)
+        self.pq_residual = pq_residual
+        self.polysemous = polysemous
+        self.polysemous_ht = polysemous_ht
         self._sq_range_override = None   # (vmin, scale) kept across repacks
         # the code-visit budget of fixed-nprobe search; 0 = unlimited
         # (IndexIVF.h:69)
@@ -158,19 +193,23 @@ class IVFFlatIndex:
         It shares the arrays' tensors and lives on their device, with the
         arrays' storage codec. The stored vectors stay queued too, decoded,
         and an SQ index keeps its range, so a later ``add`` re-encodes the
-        same codes."""
+        same codes (a PQ index trains its codebooks again on the decoded
+        vectors)."""
         nlist, d = np.asarray(centroids).shape
         if arrays.sq_scale is not None:
             storage = sq_kind(arrays.db.shape[-1], d)
+        elif arrays.pq_codebooks is not None:
+            storage = f"pq{arrays.db.shape[-1]}"
         else:
             storage = "bf16" if arrays.db.dtype == torch.bfloat16 else "f32"
-        idx = cls(d, nlist, metric, device=arrays.db.device, storage=storage)
+        idx = cls(d, nlist, metric, device=arrays.db.device, storage=storage,
+                  pq_residual=arrays.pq_residual)
         idx.centroids = np.asarray(centroids, np.float32)
         idx.interdis = arrays.interdis.cpu().numpy()
         idx.is_trained = True
-        keep = arrays.vec_ids >= 0
-        x = arrays.decode_block(arrays.db[keep]).cpu().numpy()
-        ids = arrays.vec_ids[keep].cpu().numpy().astype(np.int64)
+        keep = (arrays.vec_ids >= 0).cpu().numpy()
+        x = decoded_db(arrays)[keep]
+        ids = arrays.vec_ids.cpu().numpy()[keep].astype(np.int64)
         idx._arrays = arrays
         preserve_sq_range(idx)
         idx._pending = [(x, ids)]
@@ -321,8 +360,18 @@ class IVFFlatIndex:
             starts[:-1], sizes)
         vec_ids = np.full((self.nlist, cap), -1, np.int32)
         vec_ids[assign, slot] = vid.astype(np.int32)
+        M = pq_subquantizers(self.storage)
+        pq_books = None
         if sq:
             xd = torch.as_tensor(sq_pack(codes, self.storage), device=dev)
+            dtype = torch.uint8
+        elif M is not None and n:
+            pq_books = self._train_pq(x, assign, M)
+            target = xd
+            if self.pq_residual:
+                target = xd - cents[torch.as_tensor(assign, device=dev)]
+            xd = encode_pq(PQCodebooks(pq_books), target)
+            del target
             dtype = torch.uint8
         else:
             dtype = (torch.bfloat16 if self.storage == "bf16"
@@ -340,13 +389,32 @@ class IVFFlatIndex:
             interdis=torch.as_tensor(
                 self.interdis if self.interdis is not None
                 else np.zeros((1, 1), np.float32), device=dev),
-            sq_scale=sq_scale, sq_bias=sq_bias)
+            sq_scale=sq_scale, sq_bias=sq_bias, pq_codebooks=pq_books,
+            pq_residual=pq_books is not None and self.pq_residual)
         # f32: the stored vectors' norms (zero at padding, where the
         # vectors are zero); otherwise the decoded values', zeroed at
         # padding by id
         self._arrays = arrays._replace(
             db_sq=sqnorms(db) if dtype == torch.float32
             else _decoded_norms(arrays))
+
+    def _train_pq(self, x: np.ndarray, assign: np.ndarray, M: int
+                  ) -> torch.Tensor:
+        """PQ codebooks [M, 256, d/M] on the device, trained on the first
+        PQ_TRAIN_MAX vectors (their residuals for residual PQ), each
+        reordered for ``polysemous`` (the JAX package's SA seeds)."""
+        nt = min(x.shape[0], PQ_TRAIN_MAX)
+        sample = x[:nt]
+        if self.pq_residual:
+            sample = sample - self.centroids[assign[:nt]]
+        books = train_pq(sample, M, device=self.device).codebooks
+        if self.polysemous:
+            books = books.cpu().numpy()
+            out = np.empty_like(books)
+            for m in range(M):
+                out[m, reorder_codebook(books[m], seed=123 + m)] = books[m]
+            books = torch.as_tensor(out, device=self.device)
+        return books
 
     @property
     def arrays(self) -> IVFArrays:
@@ -403,10 +471,12 @@ class IVFFlatIndex:
                 >= self.dense_batch_mult * self.dense_cut * n_rows)
 
     def search(self, q: np.ndarray, k: int, nprobe: int | None = None):
-        """Fixed-nprobe search: over the rows when the multi-row layout is
-        enabled (by the dense crossover when ``dense_route`` says so), else
-        over the padded lists; ``max_codes`` > 0 stops each query after
-        the ranked list that crosses that many codes. Returns numpy
+        """Fixed-nprobe search: with the polysemous filter on PQ storage
+        when ``polysemous_ht`` is set, else over the rows when the
+        multi-row layout is enabled (by the dense crossover when
+        ``dense_route`` says so), else over the padded lists;
+        ``max_codes`` > 0 stops each query after the ranked list that
+        crosses that many codes. Returns numpy
         (D, I) and adds to ``ivf_stats``: ``ndis`` counts the slots the
         route's shape spans (the padded lists' cap, the corpus rows on the
         dense route, the nprobe largest lists' rows on the gathers)."""
@@ -418,7 +488,11 @@ class IVFFlatIndex:
         mr = self.multirow
         max_codes = int(self.max_codes)
         ndis = B * nprobe * self.arrays.cap
-        if mr is not None and self.dense_route(B, nprobe):
+        if self.polysemous_ht and self.arrays.pq_codebooks is not None:
+            vals, ids = ivf_search_fixed_ht(self.arrays, qt, k, nprobe,
+                                            int(self.polysemous_ht),
+                                            self.metric)
+        elif mr is not None and self.dense_route(B, nprobe):
             vals, ids = multirow_dense_fixed(mr, qt, nprobe, k, self.metric)
             ndis = B * mr.rows.db.shape[0] * mr.rows.cap
         elif mr is not None:
@@ -578,9 +652,13 @@ class IVFFlatDedupIndex(IVFFlatIndex):
 
 
 def decoded_db(a: IVFArrays) -> np.ndarray:
-    """The whole decoded [nlist, cap, d] float32 database on the host: the
-    route of every host-side reconstruction."""
-    return a.decode_block(a.db).cpu().numpy()
+    """The whole decoded [nlist, cap, d] float32 database on the host, with
+    each list's centroid added back for residual PQ: the route of every
+    host-side reconstruction."""
+    db = a.decode_block(a.db)
+    if a.pq_residual:
+        db = db + a.centroids[:, None, :]
+    return db.cpu().numpy()
 
 
 def _ivf_reconstruct(index: IVFFlatIndex, keys: np.ndarray) -> np.ndarray:

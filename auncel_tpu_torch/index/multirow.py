@@ -40,7 +40,12 @@ def build_multirow(arrays: IVFArrays, row_cap: int | None = None
     """Re-pack a padded IVFArrays into rows. The host computes only the
     addressing tables; ``db``, ``db_sq`` and ``vec_ids`` are COPIED on the
     device with one flat gather each (never recomputed), so every distance
-    term is bitwise the padded layout's; the SQ range is carried over."""
+    term is bitwise the padded layout's; the SQ range is carried over. PQ
+    storage raises AssertionError, as the JAX package's ``build_multirow``
+    does: its scan needs each list's centroid, which rows do not carry."""
+    if arrays.pq_residual or arrays.pq_codebooks is not None:
+        raise AssertionError("multirow does not support PQ storage (needs "
+                             "per-list centroids)")
     check_storage(arrays)
     dev = arrays.db.device
     sizes = arrays.list_sizes.cpu().numpy().astype(np.int64)

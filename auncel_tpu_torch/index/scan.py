@@ -25,7 +25,15 @@ distance, and ``db_sq``, is on decoded values. The kernels decode inside
 the scan; the dense passes decode one block at a time
 (``IVFArrays.decode_block``). With bf16 storage the query is rounded to
 bf16 for the dot, as the JAX package rounds it, and ``q_sq`` stays the
-float32 query's. PQ storage is not ported.
+float32 query's. PQ storage: uint8 ``[nlist, cap, M]`` codes with
+``pq_codebooks``, decoded by a codebook gather (``ops/pq.py``); with
+``pq_residual`` the codes approximate ``x - centroid[list]`` and the
+scores carry the probed list's centroid (L2 ``max(||q - c_l||^2 + db_sq -
+2 <r, q - c_l>, 0)``, IP ``<c_l, q> + <r, q>``), as the JAX package's
+residual branches write them. K2 decodes PQ codes in its ring; the
+multi-row layout takes no PQ storage (``index/multirow.py``). The
+polysemous Hamming filter (``qcodes``/``ht`` of ``scan_probe_range``,
+``ivf_search_fixed_ht``) masks K2's output.
 
 The dense passes (``masked_full_scan``, ``dense_stage_snapshots``) read the
 row corpus once for a whole batch with one fp32 matmul per block, masked by
@@ -39,16 +47,18 @@ import torch
 
 from auncel_tpu_torch.types import Metric, worst_value
 from auncel_tpu_torch.ops.distance import pairwise_scores, sqnorms
-from auncel_tpu_torch.ops.sq import sq_decode_dev
+from auncel_tpu_torch.ops.pq import PQCodebooks, encode_pq
 from auncel_tpu_torch.ops.topk import init_topk, topk_scores
 from auncel_tpu_torch.kernels.rowscan import rowscan_scores
-from auncel_tpu_torch.kernels.scan_scores import scan_scores
+from auncel_tpu_torch.kernels.scan_scores import decode_slots, scan_scores
 
 
 class IVFArrays(NamedTuple):
     """Device-resident IVF-Flat state: padded dense tensors. ``db`` holds
     float32 or bfloat16 vectors, or uint8 SQ codes with ``sq_scale`` and
-    ``sq_bias`` ([d] float32); ``db_sq`` the decoded norms."""
+    ``sq_bias`` ([d] float32), or uint8 PQ codes with ``pq_codebooks``
+    (residuals of the list's centroid when ``pq_residual``); ``db_sq`` the
+    decoded norms."""
     centroids: torch.Tensor   # [nlist, d] float32
     cent_sq: torch.Tensor     # [nlist] float32
     db: torch.Tensor          # [nlist, cap, d] f32/bf16, or [.., width] u8
@@ -58,6 +68,8 @@ class IVFArrays(NamedTuple):
     interdis: torch.Tensor    # [nlist, nlist] float32; L2: sqdist, IP: angle
     sq_scale: torch.Tensor | None = None  # [d] float32 (SQ storage only)
     sq_bias: torch.Tensor | None = None   # [d] float32 (SQ storage only)
+    pq_codebooks: torch.Tensor | None = None  # [M, 256, d/M] f32 (PQ only)
+    pq_residual: bool = False  # PQ codes encode x - centroids[list]
 
     @property
     def nlist(self) -> int:
@@ -73,10 +85,20 @@ class IVFArrays(NamedTuple):
 
     def decode_block(self, sub: torch.Tensor) -> torch.Tensor:
         """Stored block -> float32 vectors: the affine decode for SQ codes,
-        the exact widening for bf16, the block itself for f32."""
+        the codebook gather for PQ codes (residuals for residual PQ), the
+        exact widening for bf16, the block itself for f32."""
+        return decode_slots(sub, self.d, self.sq_scale, self.sq_bias,
+                            self.pq_codebooks)
+
+    def codec_kwargs(self) -> dict:
+        """The storage codec's keywords of the scan kernels' wrappers."""
         if self.sq_scale is not None:
-            return sq_decode_dev(sub, self.d, self.sq_scale, self.sq_bias)
-        return sub.to(torch.float32)
+            return {"sq_scale": self.sq_scale, "sq_bias": self.sq_bias}
+        if self.pq_codebooks is not None:
+            return {"pq_codebooks": self.pq_codebooks,
+                    "centroids": (self.centroids if self.pq_residual
+                                  else None)}
+        return {}
 
     def scan_query(self, q: torch.Tensor) -> torch.Tensor:
         """The query the dot takes: rounded to bf16 on bf16 storage (the
@@ -95,11 +117,12 @@ class RowArrays(IVFArrays):
 
 def check_storage(arrays: IVFArrays) -> None:
     """Raise NotImplementedError on storage the port does not scan: uint8
-    codes without an SQ range are PQ codes, which are not ported."""
+    codes come with an SQ range or with PQ codebooks."""
     dtype = arrays.db.dtype
-    if dtype == torch.uint8 and arrays.sq_scale is None:
+    if (dtype == torch.uint8 and arrays.sq_scale is None
+            and arrays.pq_codebooks is None):
         raise NotImplementedError(
-            "uint8 storage without sq_scale (PQ codes): PQ is not ported")
+            "uint8 storage without sq_scale or pq_codebooks")
     if dtype not in (torch.float32, torch.bfloat16, torch.uint8):
         raise NotImplementedError(f"storage dtype {dtype} is not ported")
 
@@ -138,11 +161,17 @@ def scan_probe_range(
     width: int,                 # number of probe slots to scan
     metric: Metric,
     probe_chunk: int | None = None,
+    qcodes: torch.Tensor | None = None,  # [B, n_slots, M] per-slot codes
+    ht: int | None = None,               # polysemous Hamming threshold
 ):
     """Scan probe slots [start, start + width) for every query; a per-query
     ``start`` lets each query advance its own frontier. Padded lists are
     scored by K2 and the rows of a ``RowArrays`` by K1; neither reads a
-    probe slot past the query's limit (passed as list id -1)."""
+    probe slot past the query's limit (passed as list id -1). ``qcodes``
+    and ``ht`` apply the polysemous filter on PQ storage: a stored code more
+    than ``ht`` bits from the query's code for that probe slot is dropped
+    (the worst value and id -1), as the JAX package masks it
+    (``auncel_tpu/index/scan.py:260-266``)."""
     check_storage(arrays)
     k = vals.shape[-1]
     B = q.shape[0]
@@ -154,8 +183,8 @@ def scan_probe_range(
     dev = q.device
     q = arrays.scan_query(q).contiguous()
     start = torch.as_tensor(start, dtype=torch.int32, device=dev).expand(B)
-    codec = ({} if arrays.sq_scale is None else
-             {"sq_scale": arrays.sq_scale, "sq_bias": arrays.sq_bias})
+    codec = arrays.codec_kwargs()
+    worst = worst_value(metric)
     for c0 in range(0, width, C):
         Cc = min(C, width - c0)
         iks = start[:, None] + c0 + torch.arange(Cc, dtype=torch.int32,
@@ -168,6 +197,15 @@ def scan_probe_range(
         scores, sub_ids = (rowscan_scores if rows else scan_scores)(
             arrays.db, arrays.db_sq, arrays.vec_ids, arrays.list_sizes, q,
             q_sq, lists, metric, **codec)
+        if qcodes is not None:
+            qc = torch.gather(qcodes, 1, safe_iks[:, :, None].expand(
+                -1, -1, qcodes.shape[2]))                     # [B, Cc, M]
+            raw = arrays.db[lists.clamp_min(0).long()]        # [B, Cc, cap, M]
+            ham = popcount8(raw ^ qc[:, :, None, :]).sum(
+                -1, dtype=torch.int32).reshape(B, -1)
+            keep = ham <= ht
+            scores = torch.where(keep, scores, worst)
+            sub_ids = torch.where(keep, sub_ids, -1)
         vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
                                 torch.cat([ids, sub_ids], dim=-1), k, metric)
     return vals, ids
@@ -179,7 +217,10 @@ def ivf_full_scan(arrays: IVFArrays, q: torch.Tensor, k: int,
     block of lists is read once for the whole batch and contracted with one
     fp32 matmul on the block's decoded vectors, then merged exactly. Its
     dot values match K1's within the kscaling tolerance (the same f32
-    products, summed in another order)."""
+    products, summed in another order). Residual PQ takes each list's
+    centroid through the score, as the scan kernels do: one batched product
+    with the residual queries ``q - c_l`` (L2) or with ``q`` plus
+    ``<c_l, q>`` (IP)."""
     check_storage(arrays)
     B = q.shape[0]
     nlist, cap = arrays.vec_ids.shape
@@ -191,13 +232,25 @@ def ivf_full_scan(arrays: IVFArrays, q: torch.Tensor, k: int,
     vals, ids = init_topk((B,), k, metric, q.device)
     for l0 in range(0, nlist, C):
         l1 = min(l0 + C, nlist)
-        blk = arrays.decode_block(arrays.db[l0:l1]).reshape(-1, d)
-        dots = (q @ blk.T).reshape(B, l1 - l0, cap)
-        if metric is Metric.L2:
-            scores = (q_sq[:, None, None] + arrays.db_sq[l0:l1][None]
-                      - 2.0 * dots).clamp_min(0.0)
+        blk = arrays.decode_block(arrays.db[l0:l1])          # [C, cap, d]
+        if arrays.pq_residual:
+            cl = arrays.centroids[l0:l1]                      # [C, d]
+            if metric is Metric.L2:
+                qc = q[None, :, :] - cl[:, None, :]           # [C, B, d]
+                dots = torch.bmm(blk, qc.transpose(1, 2)).permute(2, 0, 1)
+                scores = ((qc * qc).sum(-1).T[:, :, None]
+                          + arrays.db_sq[l0:l1][None]
+                          - 2.0 * dots).clamp_min(0.0)
+            else:
+                qr = (q @ blk.reshape(-1, d).T).reshape(B, l1 - l0, cap)
+                scores = (q @ cl.T)[:, :, None] + qr
         else:
-            scores = dots
+            dots = (q @ blk.reshape(-1, d).T).reshape(B, l1 - l0, cap)
+            if metric is Metric.L2:
+                scores = (q_sq[:, None, None] + arrays.db_sq[l0:l1][None]
+                          - 2.0 * dots).clamp_min(0.0)
+            else:
+                scores = dots
         blk_ids = arrays.vec_ids[l0:l1]
         scores = torch.where((blk_ids >= 0)[None], scores, worst).reshape(
             B, -1)
@@ -357,3 +410,35 @@ def ivf_search_fixed(arrays: IVFArrays, q: torch.Tensor, k: int,
                            nprobe, max_codes)
     return scan_probe_range(arrays, q, q_sq, cids, vals, ids, limit, 0,
                             nprobe, metric)
+
+
+def popcount8(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each uint8 (the JAX package's ``POPCOUNT8`` table), by
+    three masked adds on the bytes themselves."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F
+
+
+def ivf_search_fixed_ht(arrays: IVFArrays, q: torch.Tensor, k: int,
+                        nprobe: int, ht: int, metric: Metric):
+    """Fixed-nprobe IVF-PQ search with the polysemous Hamming filter
+    (``auncel_tpu/index/scan.py:636-667``): the query is encoded once per
+    probed list (residual PQ: the code of ``q - centroid[list]``, which
+    the stored codes approximate), and a stored code more than ``ht`` bits
+    from it is dropped before its distance counts."""
+    B, d = q.shape
+    q_sq = sqnorms(q)
+    _, cids = coarse_rank(arrays, q, metric, q_sq=q_sq)
+    lists = cids[:, :nprobe]
+    pq = PQCodebooks(arrays.pq_codebooks)
+    if arrays.pq_residual:
+        target = q[:, None, :] - arrays.centroids[lists.long()]
+    else:
+        target = q[:, None, :].expand(B, nprobe, d)
+    qcodes = encode_pq(pq, target.reshape(B * nprobe, d)).reshape(
+        B, nprobe, -1)
+    vals, ids = init_topk((B,), k, metric, q.device)
+    limit = torch.full((B,), nprobe, dtype=torch.int32, device=q.device)
+    return scan_probe_range(arrays, q, q_sq, lists, vals, ids, limit, 0,
+                            nprobe, metric, qcodes=qcodes, ht=ht)

@@ -15,7 +15,8 @@ bandwidth, and row-grouped: the live entries are grouped by row on the
 device, inactive entries read nothing, and each row is read once per chunk
 of up to 32 of the queries that probe it, through a TMA-fed ring. It takes
 K2's storage codecs (float32, bfloat16, and uint8 SQ8/SQ4/SQ6 codes with
-``sq_scale`` and ``sq_bias``), decoded in registers as K2 decodes them.
+``sq_scale`` and ``sq_bias``), decoded in registers as K2 decodes them;
+PQ codes raise, as ``build_multirow`` refuses PQ storage.
 
 ``rowscan_dots`` is the first, query-major port: the TPU kernel's own
 contract ``dots[t, c] = <db[work_rows[t], c, :], qs[t]>`` without its
@@ -56,13 +57,20 @@ def rowscan_scores(db: torch.Tensor, db_sq: torch.Tensor,
                    vec_ids: torch.Tensor, row_sizes: torch.Tensor,
                    q: torch.Tensor, q_sq: torch.Tensor, rows: torch.Tensor,
                    metric: Metric, sq_scale: torch.Tensor | None = None,
-                   sq_bias: torch.Tensor | None = None):
+                   sq_bias: torch.Tensor | None = None,
+                   pq_codebooks: torch.Tensor | None = None,
+                   centroids: torch.Tensor | None = None):
     """Rows ``db [n_rows, row_cap, d]`` f32 or bf16 (or ``[n_rows, row_cap,
     width]`` uint8 SQ codes with ``sq_scale`` and ``sq_bias`` [d] f32) with
     their ``db_sq``, ``vec_ids`` and ``row_sizes``, queries ``q [B, d]``
     f32 with ``q_sq``, row slots ``rows [B, n_slots]`` int32 (-1:
     inactive) -> (scores ``[B, n_slots * row_cap]`` f32, ids
-    ``[B, n_slots * row_cap]`` int32)."""
+    ``[B, n_slots * row_cap]`` int32). ``pq_codebooks`` and ``centroids``
+    raise: rows carry no PQ codes."""
+    if pq_codebooks is not None or centroids is not None:
+        raise ValueError(
+            "rowscan_scores: the multi-row layout takes no PQ codes "
+            "(build_multirow refuses PQ storage; K2 scans it)")
     args = (db, db_sq, vec_ids, row_sizes, q, q_sq, rows)
     on_cpu, codec = check_scan_args("rowscan_scores", args, metric, sq_scale,
                                     sq_bias)

@@ -26,6 +26,16 @@ registers, a multiply then an add, each rounded, so a decoded element is
 bitwise the plain version's; ``db_sq`` holds the decoded norms, and ``q``
 is taken as given (the caller rounds it to bf16 for bf16 storage).
 
+Product quantization: uint8 ``db [nlist, cap, M]`` with ``pq_codebooks
+[M, 256, d / M]`` f32 holds M codes a slot, decoded by a codebook gather
+(bitwise ``ops/pq.py::decode_pq``). With ``centroids [nlist, d]`` f32 the
+codes are residuals of the list's centroid ``c_l`` (IVFPQ by residual),
+and the score of a slot ``r`` is the JAX package's (``auncel_tpu/index/
+scan.py:226-247``): L2 ``max((||q - c_l||^2 + db_sq) - 2 <r, q - c_l>, 0)``,
+IP ``<c_l, q> + <r, q>``. The kernel holds the codebook in shared memory,
+so it takes ``d <= MAX_D_PQ``; the multi-row layout (K1) takes no PQ
+codes.
+
 ``scan_scores`` runs the kernel for CUDA tensors and the plain version,
 ``scan_scores_ref``, for CPU tensors. A CUDA tensor never falls back: the
 kernel launches or the wrapper raises. ``scan_scores.launches`` counts the
@@ -41,23 +51,39 @@ import functools
 import torch
 
 from auncel_tpu_torch.kernels import build
+from auncel_tpu_torch.ops.pq import PQCodebooks, decode_pq
 from auncel_tpu_torch.ops.sq import sq_decode_dev, sq_kind
 from auncel_tpu_torch.types import Metric, worst_value
 
 # a block's shared memory holds at least two 8-slot tiles of the list and
 # four query rows (80 * d bytes and change) within the card's 227 KB
 MAX_D = 2880
+# PQ: the codebook (1 KB a dimension) beside the ring, the queries and the
+# dots fits the 227 KB for every M <= d up to this width
+MAX_D_PQ = 172
 MAX_CAP = 2**31 - 1       # slot indices are int32
 MAX_WORK = 2**31 - 1      # entry indices are int32
 # the plain version decodes and contracts this many elements at a time
 REF_CHUNK = 1 << 26
 
 # the kernels' codec ids (csrc/worklist.cuh)
-CODECS = {"f32": 0, "bf16": 1, "sq8": 2, "sq4": 3, "sq6": 4}
+CODECS = {"f32": 0, "bf16": 1, "sq8": 2, "sq4": 3, "sq6": 4, "pq": 5}
+
+
+def decode_slots(sub, d: int, sq_scale=None, sq_bias=None,
+                 pq_codebooks=None) -> torch.Tensor:
+    """Stored slots [..., width] as float32 vectors [..., d]: the affine SQ
+    decode, the PQ codebook gather, or the exact widening."""
+    if sq_scale is not None:
+        return sq_decode_dev(sub, d, sq_scale, sq_bias)
+    if pq_codebooks is not None:
+        return decode_pq(PQCodebooks(pq_codebooks), sub)
+    return sub.to(torch.float32)
 
 
 def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
-                    metric: Metric, sq_scale=None, sq_bias=None):
+                    metric: Metric, sq_scale=None, sq_bias=None,
+                    pq_codebooks=None, centroids=None):
     """Plain PyTorch version: the gather, decode, dot and masks of the XLA
     scan, over the active (query, probe slot) entries only (an inactive
     one is all padding), a bounded number at a time."""
@@ -75,15 +101,26 @@ def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
     for t0 in range(0, active.numel(), step):
         e = active[t0:t0 + step]
         sel = flat[e].clamp_max(nlist - 1)   # ids past nlist: the last
-        sub = db[sel]
-        x = (sq_decode_dev(sub, d, sq_scale, sq_bias) if sq_scale is not None
-             else sub.to(torch.float32))
-        dots = torch.einsum("tcd,td->tc", x, q[e // S])
-        if metric is Metric.L2:
-            sc = (q_sq[e // S][:, None] + db_sq[sel] - 2.0 * dots
-                  ).clamp_min(0.0)
+        x = decode_slots(db[sel], d, sq_scale, sq_bias, pq_codebooks)
+        qb = q[e // S]
+        if centroids is not None:
+            # residual PQ, as auncel_tpu/index/scan.py:226-247 writes it
+            cl = centroids[sel]
+            if metric is Metric.L2:
+                qc = qb - cl
+                dots = torch.einsum("tcd,td->tc", x, qc)
+                sc = (((qc * qc).sum(-1))[:, None] + db_sq[sel]
+                      - 2.0 * dots).clamp_min(0.0)
+            else:
+                sc = ((cl * qb).sum(-1)[:, None]
+                      + torch.einsum("tcd,td->tc", x, qb))
         else:
-            sc = dots
+            dots = torch.einsum("tcd,td->tc", x, qb)
+            if metric is Metric.L2:
+                sc = (q_sq[e // S][:, None] + db_sq[sel] - 2.0 * dots
+                      ).clamp_min(0.0)
+            else:
+                sc = dots
         ids = vec_ids[sel]
         live = (slot < list_sizes[sel][:, None]) & (ids >= 0)
         scores[e] = torch.where(live, sc, worst_value(metric))
@@ -95,26 +132,47 @@ def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
 _ARG_NAMES = ("db", "db_sq", "vec_ids", "list_sizes", "q", "q_sq", "lists")
 
 
-def scan_codec(name: str, db: torch.Tensor, d: int, sq_scale, sq_bias
-               ) -> int:
+def scan_codec(name: str, db: torch.Tensor, d: int, sq_scale, sq_bias,
+               pq_codebooks=None, centroids=None) -> int:
     """The kernels' codec id of ``db`` (``CODECS``) at query width ``d``;
     raises on a storage the scan does not take."""
     if db.dtype != torch.uint8:
         if db.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name} takes float32, bfloat16 or uint8 db, "
                             f"got {db.dtype}")
-        if sq_scale is not None or sq_bias is not None:
-            raise ValueError(f"{name}: sq_scale and sq_bias go with uint8 "
-                             f"db")
+        if (sq_scale is not None or sq_bias is not None
+                or pq_codebooks is not None):
+            raise ValueError(f"{name}: sq_scale, sq_bias and pq_codebooks "
+                             f"go with uint8 db")
         if db.shape[-1] != d:
             raise ValueError(f"{name}: db's width {db.shape[-1]} is not the "
                              f"queries' {d}")
         return CODECS["f32" if db.dtype == torch.float32 else "bf16"]
+    if pq_codebooks is not None:
+        M = db.shape[-1]
+        if sq_scale is not None or sq_bias is not None:
+            raise ValueError(f"{name}: PQ codes take no SQ range")
+        if (pq_codebooks.dtype != torch.float32 or M == 0 or d % M
+                or pq_codebooks.shape != (M, 256, d // M)):
+            raise ValueError(
+                f"{name}: uint8 db of width M={M} needs float32 pq_codebooks "
+                f"[M, 256, d / M] (d={d}), got {pq_codebooks.dtype} "
+                f"{tuple(pq_codebooks.shape)}")
+        if centroids is not None and (
+                centroids.dtype != torch.float32
+                or centroids.shape != (db.shape[0], d)):
+            raise ValueError(f"{name} takes float32 centroids [nlist, {d}], "
+                             f"got {centroids.dtype} "
+                             f"{tuple(centroids.shape)}")
+        return CODECS["pq"]
+    if centroids is not None:
+        raise ValueError(f"{name}: centroids go with pq_codebooks")
     kind = sq_kind(db.shape[-1], d)
     if sq_scale is None or sq_bias is None or kind is None:
         raise ValueError(
             f"{name}: uint8 db needs sq_scale and sq_bias and a packed width "
-            f"of d, d/2 or 3d/4 bytes (d={d}, width {db.shape[-1]})")
+            f"of d, d/2 or 3d/4 bytes (d={d}, width {db.shape[-1]}), or "
+            f"pq_codebooks")
     for arg, t in (("sq_scale", sq_scale), ("sq_bias", sq_bias)):
         if t.dtype != torch.float32 or t.shape != (d,):
             raise ValueError(f"{name} takes float32 {arg} [{d}], got "
@@ -123,7 +181,8 @@ def scan_codec(name: str, db: torch.Tensor, d: int, sq_scale, sq_bias
 
 
 def check_scan_args(name: str, args: tuple, metric, sq_scale=None,
-                    sq_bias=None) -> tuple:
+                    sq_bias=None, pq_codebooks=None, centroids=None
+                    ) -> tuple:
     """Check the contract K2 and K1's ``rowscan_scores`` share (K1's lists
     are rows): (whether every tensor lies on the CPU, where the plain
     version runs, or else on one CUDA device; the codec id). Raises
@@ -146,10 +205,12 @@ def check_scan_args(name: str, args: tuple, metric, sq_scale=None,
             or lists.shape[0] != B):
         raise ValueError(f"{name}: shape mismatch: " + ", ".join(
             f"{arg} {tuple(t.shape)}" for arg, t in zip(_ARG_NAMES, args)))
-    codec = scan_codec(name, db, d, sq_scale, sq_bias)
+    codec = scan_codec(name, db, d, sq_scale, sq_bias, pq_codebooks,
+                       centroids)
     if nlist == 0:
         raise ValueError(f"{name} needs at least one list")
-    tensors = args if sq_scale is None else args + (sq_scale, sq_bias)
+    tensors = args + tuple(t for t in (sq_scale, sq_bias, pq_codebooks,
+                                       centroids) if t is not None)
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return True, codec
@@ -163,42 +224,59 @@ def check_scan_args(name: str, args: tuple, metric, sq_scale=None,
         raise ValueError(f"{name} supports 1 <= d <= {MAX_D}, cap <= "
                          f"{MAX_CAP} and B * n_slots <= {MAX_WORK}, got "
                          f"d={d} cap={cap} B*n_slots={B * S}")
+    if codec == CODECS["pq"] and d > MAX_D_PQ:
+        raise ValueError(f"{name} holds the PQ codebook in shared memory: "
+                         f"d <= MAX_D_PQ = {MAX_D_PQ}, got d={d}")
     return False, codec
 
 
 def launch_scan(name: str, lib, args: tuple, metric, codec: int = 0,
-                sq_scale=None, sq_bias=None):
-    """Enqueue ``lib``'s ``{name}_launch`` (with its worklist scratch) on
-    the args' CUDA device and current stream: (scores, ids, whether a
-    kernel was launched)."""
+                sq_scale=None, sq_bias=None, pq_codebooks=None,
+                centroids=None):
+    """Enqueue ``lib``'s ``{name}_launch`` (``{name}_pq_launch`` for PQ
+    codes), with its worklist scratch, on the args' CUDA device and current
+    stream: (scores, ids, whether a kernel was launched)."""
     db, db_sq, vec_ids, list_sizes, q, q_sq, lists = args
-    nlist, cap, _ = db.shape
+    nlist, cap, width = db.shape
     B, S = lists.shape
     d = q.shape[1]
     scores = torch.empty((B, S * cap), dtype=torch.float32, device=db.device)
     ids = torch.empty((B, S * cap), dtype=torch.int32, device=db.device)
     if B * S == 0 or cap == 0:
         return scores, ids, False
+    pq = codec == CODECS["pq"]
     # the worklist's scratch (none up to one chunk of entries)
-    n_scratch = getattr(lib, f"{name}_scratch_ints")(nlist, cap, d, B * S,
-                                                     codec)
+    if pq:
+        n_scratch = getattr(lib, f"{name}_pq_scratch_ints")(
+            nlist, cap, d, width, B * S)
+    else:
+        n_scratch = getattr(lib, f"{name}_scratch_ints")(nlist, cap, d,
+                                                         B * S, codec)
     if n_scratch < 0:
         raise ValueError(f"{name}: the worklist for B * n_slots = {B * S} "
-                         f"over cap {cap} does not fit int32")
+                         f"over cap {cap} does not fit int32, or the shared "
+                         f"memory of d = {d} does not fit the card")
     # freed on return while the kernels may still run: the caching
     # allocator hands it out again only to work queued after them on this
     # stream
     scratch = (torch.empty(n_scratch, dtype=torch.int32, device=db.device)
                if n_scratch else None)
-    err = getattr(lib, f"{name}_launch")(
-        db.data_ptr(), db_sq.data_ptr(), vec_ids.data_ptr(),
-        list_sizes.data_ptr(), q.data_ptr(), q_sq.data_ptr(),
-        lists.data_ptr(), scores.data_ptr(), ids.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        None if sq_scale is None else sq_scale.data_ptr(),
-        None if sq_bias is None else sq_bias.data_ptr(), B * S, S, nlist,
-        cap, d, int(metric is Metric.L2), codec, db.device.index,
-        torch.cuda.current_stream(db.device).cuda_stream)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    head = (db.data_ptr(), db_sq.data_ptr(), vec_ids.data_ptr(),
+            list_sizes.data_ptr(), q.data_ptr(), q_sq.data_ptr(),
+            lists.data_ptr(), scores.data_ptr(), ids.data_ptr(),
+            ptr(scratch))
+    tail = (db.device.index, torch.cuda.current_stream(db.device).cuda_stream)
+    if pq:
+        err = getattr(lib, f"{name}_pq_launch")(
+            *head, ptr(pq_codebooks), ptr(centroids), B * S, S, nlist, cap,
+            d, width, int(metric is Metric.L2), *tail)
+    else:
+        err = getattr(lib, f"{name}_launch")(
+            *head, ptr(sq_scale), ptr(sq_bias), B * S, S, nlist, cap, d,
+            int(metric is Metric.L2), codec, *tail)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return scores, ids, True
@@ -208,20 +286,24 @@ def scan_scores(db: torch.Tensor, db_sq: torch.Tensor, vec_ids: torch.Tensor,
                 list_sizes: torch.Tensor, q: torch.Tensor, q_sq: torch.Tensor,
                 lists: torch.Tensor, metric: Metric,
                 sq_scale: torch.Tensor | None = None,
-                sq_bias: torch.Tensor | None = None):
+                sq_bias: torch.Tensor | None = None,
+                pq_codebooks: torch.Tensor | None = None,
+                centroids: torch.Tensor | None = None):
     """Padded lists ``db [nlist, cap, d]`` f32 or bf16 (or ``[nlist, cap,
-    width]`` uint8 SQ codes with ``sq_scale`` and ``sq_bias`` [d] f32) with
-    their ``db_sq``, ``vec_ids`` and ``list_sizes``, queries ``q [B, d]``
-    f32 with ``q_sq``, probes ``lists [B, n_slots]`` int32 (-1: inactive)
-    -> (scores ``[B, n_slots * cap]`` f32, ids ``[B, n_slots * cap]``
+    width]`` uint8 SQ codes with ``sq_scale`` and ``sq_bias`` [d] f32, or
+    ``[nlist, cap, M]`` uint8 PQ codes with ``pq_codebooks`` [M, 256, d/M]
+    f32 and, for residual codes, ``centroids`` [nlist, d] f32) with their
+    ``db_sq``, ``vec_ids`` and ``list_sizes``, queries ``q [B, d]`` f32
+    with ``q_sq``, probes ``lists [B, n_slots]`` int32 (-1: inactive) ->
+    (scores ``[B, n_slots * cap]`` f32, ids ``[B, n_slots * cap]``
     int32)."""
     args = (db, db_sq, vec_ids, list_sizes, q, q_sq, lists)
-    on_cpu, codec = check_scan_args("scan_scores", args, metric, sq_scale,
-                                    sq_bias)
+    codec_args = (sq_scale, sq_bias, pq_codebooks, centroids)
+    on_cpu, codec = check_scan_args("scan_scores", args, metric, *codec_args)
     if on_cpu:
-        return scan_scores_ref(*args, metric, sq_scale, sq_bias)
+        return scan_scores_ref(*args, metric, *codec_args)
     scores, ids, launched = launch_scan("scan_scores", _library(), args,
-                                        metric, codec, sq_scale, sq_bias)
+                                        metric, codec, *codec_args)
     scan_scores.launches += launched
     return scores, ids
 
@@ -229,9 +311,10 @@ def scan_scores(db: torch.Tensor, db_sq: torch.Tensor, vec_ids: torch.Tensor,
 scan_scores.launches = 0
 
 
-def bind_scan(lib, name: str):
+def bind_scan(lib, name: str, pq: bool = False):
     """Set the ctypes signatures of ``lib``'s ``{name}_scratch_ints`` and
-    ``{name}_launch``."""
+    ``{name}_launch`` (and with ``pq`` of ``{name}_pq_scratch_ints`` and
+    ``{name}_pq_launch``)."""
     fn = getattr(lib, f"{name}_scratch_ints")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_int]
@@ -242,9 +325,19 @@ def bind_scan(lib, name: str):
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    if pq:
+        fn = getattr(lib, f"{name}_pq_scratch_ints")
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
+        fn.restype = ctypes.c_longlong
+        fn = getattr(lib, f"{name}_pq_launch")
+        fn.argtypes = [ctypes.c_void_p] * 12 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def _library():
-    return bind_scan(build.load("scan_scores"), "scan_scores")
+    return bind_scan(build.load("scan_scores"), "scan_scores", pq=True)

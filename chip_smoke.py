@@ -42,6 +42,16 @@ shapes the main path gives it (the window's waves, a training chunk, batch
                    nprobe search on the dense route against the gathers
                    and with max_codes, and K1 and K2 on the codes at
                    worklists recorded from this path;
+  [pq 10M]         the same corpus with residual IVFPQ (IVF1024,PQ16,
+                   polysemous codebooks) on the [sq8 10M] phase's coarse
+                   centroids, served by the padded engines with K2 on
+                   the codes: profile training, calibration, the held-out
+                   window (worst-case recall@10 >= 0.9 or the run fails)
+                   and 200 batch-1 queries, fixed-nprobe search at nprobe
+                   32 without and with the polysemous filter, and K2
+                   against its plain version at calls recorded from this
+                   path (the window's largest, batch 1, a training
+                   chunk);
   [eval]           the evaluation harness's experiments on the card
                    (auncel_tpu_torch.eval_harness), from a temporary
                    directory that holds their caches and logs: bound and
@@ -156,12 +166,14 @@ def k1_bound(db, rows, qs) -> tuple:
     return bound(n_bytes, 2.0 * T * row_cap * d)
 
 
-def k2_work(db, db_sq, vec_ids, list_sizes, q, q_sq, lists) -> dict:
+def k2_work(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
+            codec: dict | None = None) -> dict:
     """What K2's inputs need: the live slots of each distinct probed list
     read once (the stored vector at its codec's width: 4d bytes for f32, d
-    for SQ8; norm; id) with the list sizes, probes and queries; scores and
-    ids written for every slot. Also the live bytes the kernel reads, once
-    per (query, probe slot)."""
+    for SQ8, M for PQ; norm; id) with the list sizes, probes and queries;
+    for PQ the codebook once and, residual, the centroid row of each
+    distinct probed list once; scores and ids written for every slot. Also
+    the live bytes the kernel reads, once per (query, probe slot)."""
     nlist, cap, width = db.shape
     d = q.shape[1]
     B, S = lists.shape
@@ -174,6 +186,11 @@ def k2_work(db, db_sq, vec_ids, list_sizes, q, q_sq, lists) -> dict:
     out_bytes = B * S * cap * 8
     n_bytes = (live_distinct * slot_bytes + distinct.numel() * 4
                + B * S * 4 + B * d * 4 + B * 4 + out_bytes)
+    cd = codec or {}
+    if cd.get("pq_codebooks") is not None:
+        n_bytes += cd["pq_codebooks"].numel() * 4
+        if cd.get("centroids") is not None:
+            n_bytes += distinct.numel() * d * 4
     ms, by = bound(n_bytes, 2.0 * d * live_probed)
     return {"bound_ms": ms, "bound_by": by, "bound_bytes": n_bytes,
             "live_bytes": live_probed * slot_bytes + out_bytes}
@@ -374,8 +391,10 @@ def k2_compare(name, args, metric, card: str, reps: int = 20,
     With ``terms_tol`` the L2 tolerance is 1e-5 of the score's terms
     (q_sq + db_sq) rather than of the score: on data of SIFT's scale a
     near neighbour's score is the difference of terms ~60x larger than it,
-    and the two versions' dots differ in sum order. ``codec``: the SQ
-    range (sq_scale, sq_bias) of uint8 storage."""
+    and the two versions' dots differ in sum order (for residual PQ the
+    terms are ||q - c_l||^2 + db_sq). ``codec``: the SQ range (sq_scale,
+    sq_bias) or the PQ codebook (pq_codebooks, and centroids for residual
+    codes) of uint8 storage."""
     from auncel_tpu_torch.kernels.scan_scores import (
         scan_scores, scan_scores_ref)
     cd = codec or {}
@@ -394,20 +413,22 @@ def k2_compare(name, args, metric, card: str, reps: int = 20,
         db, db_sq, _, _, q, q_sq, lists = args
         B, S = lists.shape
         sel = lists.long().clamp(0, db.shape[0] - 1)
-        terms = (q_sq[:, None, None] + db_sq[sel]).reshape(B, -1)
+        _, qsq, dsq = l2_terms(args, cd)
+        terms = (qsq + dsq).reshape(B, -1)
         ok = bool(((got_s - want_s).abs()[fin]
                    <= 1e-5 * terms[fin] + 1e-5).all())
         check(ok, f"K2 {name}: scores beyond 1e-5 of their terms")
-        tol = "1e-5 of q_sq + db_sq"
+        tol = ("1e-5 of ||q - c_l||^2 + db_sq" if cd.get("centroids")
+               is not None else "1e-5 of q_sq + db_sq")
         # how far each fp32 version is from the same function in float64,
         # on the first queries: the difference above is their two errors
         n = max(1, min(32, B, (1 << 26) // max(S * db.shape[1] * q.shape[1],
                                                 1)))
-        dots = torch.einsum("bscd,bd->bsc",
+        qq, qsq, dsq = l2_terms(args, cd, n, torch.float64)
+        dots = torch.einsum("bscd,bsd->bsc",
                             decoded(db[sel[:n]], q.shape[1], cd).double(),
-                            q[:n].double())
-        exact = (q_sq[:n, None, None].double() + db_sq[sel[:n]].double()
-                 - 2.0 * dots).clamp_min(0.0).reshape(n, -1)
+                            qq)
+        exact = (qsq + dsq - 2.0 * dots).clamp_min(0.0).reshape(n, -1)
         f = fin[:n]
         e_k = float((got_s[:n] - exact)[f].abs().max())
         e_p = float((want_s[:n] - exact)[f].abs().max())
@@ -423,7 +444,7 @@ def k2_compare(name, args, metric, card: str, reps: int = 20,
                            lambda: scan_scores_ref(*args, metric, **cd), reps)
     t_dev = device_ms(lambda: scan_scores(*args, metric, **cd), 20)
     dev = "not measured" if t_dev is None else f"{t_dev:.4f} ms"
-    work = k2_work(*args)
+    work = k2_work(*args, codec=cd)
     B, S = args[6].shape
     log(f"[{label}] {name}: B={B} n_slots={S} cap={args[0].shape[1]} "
         f"d={args[4].shape[1]} {metric.name} {args[0].dtype} "
@@ -488,11 +509,29 @@ def k2_check(device, card: str) -> None:
 
 def decoded(x, d: int, codec: dict) -> torch.Tensor:
     """Stored vectors as float32: the plain SQ decode with ``codec``'s
-    range, the exact widening of bf16, float32 as it is."""
-    from auncel_tpu_torch.ops.sq import sq_decode_dev
-    if codec:
-        return sq_decode_dev(x, d, codec["sq_scale"], codec["sq_bias"])
-    return x.float()
+    range, the PQ codebook gather (residuals for residual PQ), the exact
+    widening of bf16, float32 as it is."""
+    from auncel_tpu_torch.kernels.scan_scores import decode_slots
+    return decode_slots(x, d, codec.get("sq_scale"), codec.get("sq_bias"),
+                        codec.get("pq_codebooks"))
+
+
+def l2_terms(args, codec: dict, n: int | None = None,
+             dtype=torch.float32) -> tuple:
+    """The L2 score's terms of the first ``n`` queries of K2's args: (the
+    query side [n, S, d], its squared norms [n, S, 1], the stored norms
+    [n, S, cap]): q and q_sq, or for residual PQ q - c_l and its squared
+    norm."""
+    db, db_sq, _, _, q, q_sq, lists = args
+    n = q.shape[0] if n is None else n
+    sel = lists[:n].long().clamp(0, db.shape[0] - 1)
+    qq = q[:n].to(dtype)[:, None, :].expand(n, sel.shape[1], q.shape[1])
+    if codec.get("centroids") is not None:
+        qq = qq - codec["centroids"][sel].to(dtype)
+        qsq = (qq * qq).sum(-1)[:, :, None]
+    else:
+        qsq = q_sq[:n].to(dtype)[:, None, None].expand(n, sel.shape[1], 1)
+    return qq, qsq, db_sq[sel].to(dtype)
 
 
 def coded(args, codec: str, seed: int) -> tuple:
@@ -1399,7 +1438,6 @@ def build_10m(card: str) -> dict:
     idx = IVFFlatIndex(D10M, NLIST, storage="sq8")
     _, times["train"] = synced(lambda: idx.train(xb[:400_000]))
     _, times["add+pack"] = synced(lambda: (idx.add(xb), idx.arrays))
-    del xb
     mr, times["multirow"] = synced(lambda: idx.enable_multirow())
     a, rows = idx.arrays, mr.rows
     check(a.db.dtype == torch.uint8 and rows.db.dtype == torch.uint8
@@ -1418,7 +1456,7 @@ def build_10m(card: str) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
     (gt_D, gt_I), times["exact_search"] = synced(
         lambda: idx.exact_search(xq, MAX_TOPK, batch=1000))
-    return dict(idx=idx, xq=xq, gt_D=gt_D, gt_I=gt_I, times=times)
+    return dict(idx=idx, xb=xb, xq=xq, gt_D=gt_D, gt_I=gt_I, times=times)
 
 
 def sq8_10m_phase(card: str, profile_dir: str | None) -> dict:
@@ -1428,7 +1466,8 @@ def sq8_10m_phase(card: str, profile_dir: str | None) -> dict:
     worst-case recall@10 >= 0.9 or the run fails; then fixed-nprobe
     search on the dense route against the gathers, and with max_codes;
     then K1 and K2 against their plain versions at worklists recorded from
-    this path. Returns the main path's launches and the kernels' numbers."""
+    this path. Returns the main path's launches, the kernels' numbers, and
+    the corpus (vectors, queries, trained centroids) for [pq 10M]."""
     from auncel_tpu_torch import ErrorSys
 
     c = build_10m(card)
@@ -1468,7 +1507,8 @@ def sq8_10m_phase(card: str, profile_dir: str | None) -> dict:
         fixed_10m(idx, xq, card)
         kernels = kernels_10m(es, xq, card)
     return {"launches": launches, "kernels": kernels,
-            "min_recall": window["min_recall"]}
+            "min_recall": window["min_recall"],
+            "corpus": dict(xb=c["xb"], xq=xq, centroids=idx.centroids)}
 
 
 def fixed_10m(idx, xq, card: str) -> None:
@@ -1553,6 +1593,193 @@ def kernels_10m(es, xq, card: str) -> dict:
         f"{tuple(chunk[1][6].shape)})", chunk[1], chunk[2], card, reps=10,
         terms_tol=True, codec=chunk[3], label="k2 sq8")
     return out
+
+
+# [pq 10M]: residual IVFPQ (the JAX package's "IVFn,PQm" cell with the
+# reference IVFPQ's by-residual default, auncel_tpu/index/ivf.py:399-438)
+# on the same synthDeep10M corpus, served by the padded engines with every
+# probe scored by K2 on the codes: IVF1024,PQ16 (16 bytes a vector), the
+# [sq8 10M] phase's coarse quantizer, polysemous codebooks so that the
+# Hamming filter of fixed-nprobe search is meaningful. Profile, calibration
+# and held-out queries as in [sq8 10M].
+PQ_M10M = 16
+PQ_HT10M = (48, 64, 8 * PQ_M10M)   # Hamming thresholds; the last is off
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, times: dict, key: str):
+    """Add the seconds (synchronised) of each call of module.name made
+    inside the block to times[key]."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out, dt = synced(lambda: real(*args, **kw))
+        times[key] = times.get(key, 0.0) + dt
+        return out
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def build_pq10m(corpus: dict, card: str) -> dict:
+    """The IVF1024,PQ16 residual index on the card (the coarse centroids
+    set, not trained again; PQ training on the first 200 000 residuals, the
+    polysemous reordering, the encode and the decoded norms timed apart)
+    and the ground truth of the first 4000 queries on it."""
+    import auncel_tpu_torch.index.ivf as ivf
+    from auncel_tpu_torch import IVFFlatIndex
+    times = {}
+    xb, xq = corpus["xb"], corpus["xq"]
+    idx = IVFFlatIndex(D10M, NLIST, storage=f"pq{PQ_M10M}", polysemous=True)
+    idx.set_centroids(corpus["centroids"])
+    with timed_calls(ivf, "train_pq", times, "pq train"), \
+            timed_calls(ivf, "reorder_codebook", times, "polysemous"), \
+            timed_calls(ivf, "encode_pq", times, "encode"), \
+            timed_calls(ivf, "_decoded_norms", times, "norms"):
+        _, times["add+pack"] = synced(lambda: (idx.add(xb), idx.arrays))
+    a = idx.arrays
+    check(a.db.dtype == torch.uint8 and a.db.shape[2] == PQ_M10M
+          and a.pq_residual and a.pq_codebooks is not None,
+          f"PQ storage: {a.db.dtype} {tuple(a.db.shape)}")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    log(f"[pq 10M] index: {NB10M}x{D10M} PQ{PQ_M10M} residual, nlist "
+        f"{NLIST}, cap {a.cap} (packing {idx.packing_efficiency:.3f}); on "
+        f"the card: codes {nbytes(a.db) / 2**30:.3f} GiB, norms "
+        f"{nbytes(a.db_sq) / 2**30:.3f} GiB, ids "
+        f"{nbytes(a.vec_ids) / 2**30:.3f} GiB, codebook "
+        f"{nbytes(a.pq_codebooks) / 2**10:.0f} KiB; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    (gt_D, gt_I), times["exact_search"] = synced(
+        lambda: idx.exact_search(xq, MAX_TOPK, batch=1000))
+    return dict(idx=idx, xq=xq, gt_D=gt_D, gt_I=gt_I, times=times)
+
+
+def pq_10m_phase(corpus: dict, card: str, profile_dir: str | None) -> dict:
+    """[pq 10M]: residual IVFPQ on the port's main path, the padded
+    engines with K2 on the codes: profile training, calibration, the
+    held-out window (worst-case recall@10 >= 0.9 or the run fails) and
+    batch-1 windows, fixed-nprobe search with and without the polysemous
+    filter; then K2 against its plain version at calls recorded from this
+    path. Returns the main path's launches and the kernel's numbers."""
+    from auncel_tpu_torch import ErrorSys
+    c = build_pq10m(corpus, card)
+    idx, xq, gt_D, times = c["idx"], c["xq"], c["gt_D"], c["times"]
+    reset_counts()
+    es = ErrorSys(idx, train_num=START10M + N_TEST_Q, max_topk=MAX_TOPK)
+    es.set_gt(gt_D, c["gt_I"])
+    (_, times["sys_train"]), train = counted(
+        lambda: synced(lambda: es.sys_train(PROFILE10M, xq)))
+    es.set_topk(K)
+    es.set_queries(N_TEST_Q, xq, np.full(START10M + N_TEST_Q, 1.0 - EPS,
+                                         np.float32))
+    mult, times["calibrate"] = synced(
+        lambda: es.calibrate(PROFILE10M, CAL10M, target_bound=1.0 - EPS))
+    log(f"[pq 10M] calibrate on [{PROFILE10M}, {PROFILE10M + CAL10M}): "
+        f"multipler={mult:.3f} std_m={es.std_m} _cal_mean_scan="
+        f"{es._cal_mean_scan:.3f}")
+    window = serve_window(es, gt_D, card, "pq 10M", start=START10M)
+    times["search"] = window["seconds"]
+    lat = serve_batch1(es, N_LATENCY10M, card, "pq 10M latency",
+                       start=START10M)
+    fixed = fixed_pq10m(idx, xq, gt_D, card)
+    launches = launch_counts()
+    log("[pq 10M stages] " + " ".join(f"{k}={v:.2f}s"
+                                      for k, v in times.items())
+        + f" [{card}]")
+    log(f"[pq 10M] launches over the path: {launches}, profile training "
+        f"{train}, fixed-nprobe {fixed}")
+    check(train["scan_scores"] > 0, "PQ profile training never launched K2")
+    check(window["launches"]["scan_scores"] > 0
+          and lat.get("scan_scores", 0) > 0 and fixed["scan_scores"] > 0,
+          "PQ search never launched K2")
+    check(launches["rowscan_scores"] == 0 and launches["rowscan_dots"] == 0,
+          "the PQ path launched K1, whose layout refuses PQ")
+    if profile_dir:
+        profile_call(lambda: es.search(START10M, N_TEST_Q), profile_dir,
+                     card, "pq 10M window")
+        profile_call(lambda: es.search(START10M, 1), profile_dir, card,
+                     "pq 10M batch1")
+    with uncounted():
+        kernels = kernels_pq10m(es, xq, card)
+    return {"launches": launches, "kernels": kernels,
+            "min_recall": window["min_recall"]}
+
+
+def fixed_pq10m(idx, xq, gt_D, card: str) -> dict:
+    """Fixed-nprobe search of the held-out queries at nprobe 32, then with
+    the polysemous filter at each PQ_HT10M (the last keeps every code, so
+    its ids equal the unfiltered search's); recall@10 against the ground
+    truth and the time of each. Returns the launches."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.autotune import recall_counts
+    q = xq[START10M:START10M + N_TEST_Q]
+    gt = gt_D[START10M:START10M + N_TEST_Q]
+    nprobe = FIXED_NPROBE10M
+
+    def run():
+        (Dq, Iq), t = synced(lambda: idx.search(q, K, nprobe=nprobe))
+        cnt = recall_counts(Dq, gt, K, Metric.L2)
+        return Dq, Iq, t, cnt
+
+    (D0, I0, t0, c0), n = counted(run)
+    check(D0.shape == (N_TEST_Q, K) and np.isfinite(D0).all(),
+          "PQ fixed-nprobe results")
+    log(f"[pq 10M fixed] B={N_TEST_Q} nprobe={nprobe}: {t0 * 1e3:.2f} ms, "
+        f"recall@{K} worst {c0.min() / K:.3f} mean {c0.mean() / K:.4f} "
+        f"[{card}]")
+    total = dict(n)
+    for ht in PQ_HT10M:
+        idx.polysemous_ht = ht
+        (Dh, Ih, th, ch), n = counted(run)
+        for k, v in n.items():
+            total[k] += v
+        kept = Ih >= 0
+        check(np.isfinite(Dh[kept]).all() and (~np.isfinite(Dh[~kept])).all(),
+              f"PQ ht={ht}: results")
+        if ht == 8 * PQ_M10M:
+            check(np.array_equal(Ih, I0) and bool(
+                (np.abs(Dh - D0) <= 1e-5 * np.abs(D0) + 1e-5).all()),
+                "the filter at every bit differs from the unfiltered search")
+        log(f"[pq 10M fixed] polysemous ht={ht}: {th * 1e3:.2f} ms, "
+            f"recall@{K} worst {ch.min() / K:.3f} mean {ch.mean() / K:.4f}, "
+            f"results kept {kept.mean():.4f} [{card}]")
+    idx.polysemous_ht = 0
+    return total
+
+
+def kernels_pq10m(es, xq, card: str) -> dict:
+    """K2 on the PQ codes at calls recorded from the [pq 10M] path: the
+    held-out window's largest, a batch-1 search's largest and a profile-
+    training chunk, each against its plain version within 1e-5 of
+    ||q - c_l||^2 + db_sq. Returns the window call's numbers (the kernels
+    line's entry), with the others under "batch1" and "train"."""
+    from auncel_tpu_torch.profile.trainer import train_profile
+    idx = es.index
+
+    def largest(calls):
+        return max(calls, key=lambda c: int((c[1][6] >= 0).sum()))
+
+    out = {}
+    for key, label, fn in (
+            ("window", "10M window",
+             lambda: es.search(START10M, N_TEST_Q)),
+            ("batch1", "10M batch 1", lambda: es.search(START10M, 1)),
+            ("train", "10M training chunk",
+             lambda: train_profile(idx.arrays, xq[:100], es.gt_D[:100],
+                                   MAX_TOPK, idx.metric, n_batches=1))):
+        calls = record_row_scans(fn, "scan_scores")
+        stage, args, metric, kw = largest(calls)
+        out[key] = k2_compare(
+            f"{label}, the largest of {len(calls)} calls (B x n_slots "
+            f"{tuple(args[6].shape)})", args, metric, card,
+            reps=200 if key == "batch1" else 10, terms_tol=True, codec=kw,
+            label="k2 pq")
+        torch.cuda.empty_cache()
+    return {**out["window"], "batch1": out["batch1"], "train": out["train"]}
 
 
 # [eval]: the evaluation harness's experiments on the card, as
@@ -1805,7 +2032,8 @@ def ptxas_report(text: str) -> list:
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
-            args = re.findall(r"F32|BF16|SQ8|SQ4|SQ6|Lb[01]", m.group(1))
+            args = re.findall(r"F32|BF16|SQ8|SQ4|SQ6|PQ|Lb[01]",
+                              m.group(1))
             fn = (" ".join([name.group(1)] + args) if name
                   else m.group(1))
         elif "spill" in line:
@@ -1859,8 +2087,15 @@ def main() -> int:
     log(f"[total] 1M phases {time.perf_counter() - t0:.1f} s")
     t10 = time.perf_counter()
     sq8 = sq8_10m_phase(card, profile_dir)
+    corpus10m = sq8.pop("corpus")
     log(f"[total] {time.perf_counter() - t0:.1f} s (the 10M phase "
         f"{time.perf_counter() - t10:.1f} s)")
+    torch.cuda.empty_cache()
+    t_pq = time.perf_counter()
+    pq = pq_10m_phase(corpus10m, card, profile_dir)
+    del corpus10m
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [pq 10M] phase "
+        f"{time.perf_counter() - t_pq:.1f} s)")
     torch.cuda.empty_cache()
     t_eval = time.perf_counter()
     ev = eval_phase(card)
@@ -1893,6 +2128,9 @@ def main() -> int:
         {"name": "scan_scores sq8", "route": "cuda", "source": k2_src,
          "replaces": k2_tpu, "launches": sq8["launches"]["scan_scores"],
          "library_ms": None, **numbers(sq8["kernels"]["scan_scores"])},
+        {"name": "scan_scores pq", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": pq["launches"]["scan_scores"],
+         "library_ms": None, **numbers(pq["kernels"])},
         {"name": "rowscan_scores eval", "route": "cuda", "source": k1_src,
          "replaces": k1_tpu, "launches": ev["launches"]["rowscan_scores"],
          "library_ms": None, **numbers(ev["kernels"]["rowscan_scores"])},

@@ -82,7 +82,10 @@ def test_set_index_parameters():
     assert (idx.nprobe, idx.max_codes) == (7, 300)
     set_index_parameter(idx, "max_codes", np.inf)
     assert idx.max_codes == 0
-    for knob in ("efSearch", "ht", "k_factor"):
+    set_index_parameter(idx, "ht", 12)   # the polysemous filter's knob
+    assert idx.polysemous_ht == 12
+    idx.polysemous_ht = 0
+    for knob in ("efSearch", "k_factor"):
         with pytest.raises(ValueError):
             set_index_parameter(idx, knob, 4)
     assert ParameterSpace(object()).parameter_ranges() == []

@@ -2,8 +2,9 @@
 the JAX package on the shared fixture's data: the SQ helpers, the decode,
 the packing of the port's own ``_pack``, ``build_multirow`` on codes, and
 ``scan_probe_range`` on the same carried-over state on both layouts and
-both metrics (ids equal, values within 1e-5 of q_sq + db_sq). PQ still
-raises. ErrorSys on SQ8 is in tests/test_torch_sq_engine.py."""
+both metrics (ids equal, values within 1e-5 of q_sq + db_sq). PQ storage
+is in tests/test_torch_pq.py; the multi-row layout still refuses it.
+ErrorSys on SQ8 is in tests/test_torch_sq_engine.py."""
 
 import numpy as np
 import pytest
@@ -170,14 +171,23 @@ def test_scan_probe_range_matches_jax(storage):
 
 
 def test_pq_storage_still_raises():
-    with pytest.raises(NotImplementedError):
-        IVFFlatIndex(D, NLIST, storage="pq8", device=DEVICE)
+    """PQ storage is ported on the padded layout (tests/test_torch_pq.py);
+    what still raises: the multi-row layout and K1 on PQ codes, and uint8
+    codes that come with neither an SQ range nor PQ codebooks."""
     state = as_numpy(codec_fixture("sq8").arrays)
-    with pytest.raises(NotImplementedError):
-        convert.ivf_arrays_from_numpy(
-            dict(state, pq_codebooks=np.zeros((4, 256, 4), np.float32)),
-            DEVICE)
     a = convert.ivf_arrays_from_numpy(state, DEVICE)
+    books = torch.zeros((4, 256, D // 4))
+    pq = a._replace(db=a.db[:, :, :4].contiguous(), sq_scale=None,
+                    sq_bias=None, pq_codebooks=books, pq_residual=True)
+    tscan.check_storage(pq)
+    with pytest.raises(AssertionError):
+        build_multirow(pq, 64)
+    from auncel_tpu_torch.kernels.rowscan import rowscan_scores
+    with pytest.raises(ValueError):
+        rowscan_scores(pq.db, pq.db_sq, pq.vec_ids, pq.list_sizes,
+                       torch.ones(2, D), torch.ones(2),
+                       torch.zeros(2, 1, dtype=torch.int32), Metric.L2,
+                       pq_codebooks=books)
     with pytest.raises(NotImplementedError):
         tscan.check_storage(a._replace(sq_scale=None, sq_bias=None))
 

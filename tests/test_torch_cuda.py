@@ -1,10 +1,11 @@
 """The port on a CUDA card, skipped without one: K1 (rowscan_scores on the
 main path, rowscan_dots beside it) and K2 against their plain versions, on
 every storage codec too (float32, bf16, SQ8, SQ4, SQ6, at widths whose
-slots are and are not a multiple of 16 bytes), and the bounded-search
-slices (the multi-row path, on float32 and SQ8 storage, and the padded
-path) on the card against the same slices on the CPU, where the kernels'
-plain versions run. The entry points' default device is checked
+slots are and are not a multiple of 16 bytes; K2 on PQ codes, residual and
+plain, at dsub 2, 4 and 6), and the bounded-search slices (the multi-row
+path, on float32 and SQ8 storage, and the padded path, on float32 and PQ
+storage) on the card against the same slices on the CPU, where the
+kernels' plain versions run. The entry points' default device is checked
 everywhere. This file imports no jax, so it also runs where jax is not
 installed, without the suite's conftest:
 
@@ -23,8 +24,10 @@ from auncel_tpu_torch.index.flat import sq_levels, sq_pack
 from auncel_tpu_torch.index.ivf import compute_interdis
 from auncel_tpu_torch.kernels.rowscan import (
     rowscan_dots, rowscan_dots_ref, rowscan_scores, rowscan_scores_ref)
-from auncel_tpu_torch.kernels.scan_scores import scan_scores, scan_scores_ref
+from auncel_tpu_torch.kernels.scan_scores import (
+    MAX_D_PQ, scan_scores, scan_scores_ref)
 from auncel_tpu_torch.ops.kmeans import kmeans
+from auncel_tpu_torch.ops.pq import PQCodebooks, decode_pq
 from auncel_tpu_torch.ops.sq import sq_decode_dev
 from auncel_tpu_torch.types import Metric
 from torch_parity import (ACC, D, K, MAX_TOPK, N_TEST, N_TRAIN, NLIST,
@@ -433,3 +436,165 @@ def test_padded_path_on_the_card_matches_the_cpu():
         np.testing.assert_array_equal(card[name], cpu[name])
     for name in ("D", "D1"):
         np.testing.assert_allclose(card[name], cpu[name], rtol=1e-5)
+
+
+def pq_inputs(nlist, cap, d, M, B, n_slots, device, residual, seed=0):
+    """``padded_inputs`` with PQ storage: random codes [nlist, cap, M], a
+    codebook [M, 256, d / M] and (residual) centroids ~ N(0, 1/d); db_sq the
+    decoded norms, zero at dead slots. Returns (args, codec keywords)."""
+    args = list(padded_inputs(nlist, cap, d, B, n_slots, device, seed=seed))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    s = d ** -0.5
+    books = torch.randn((M, 256, d // M), generator=gen, device=device) * s
+    codes = torch.randint(0, 256, (nlist, cap, M), generator=gen,
+                          device=device, dtype=torch.int32).to(torch.uint8)
+    x = decode_pq(PQCodebooks(books), codes)
+    args[0] = codes
+    args[1] = torch.where(args[2] >= 0, (x * x).sum(-1), 0.0)
+    cents = (torch.randn((nlist, d), generator=gen, device=device) * s
+             if residual else None)
+    return args, {"pq_codebooks": books, "centroids": cents}
+
+
+def pq_terms(args, codec, metric):
+    """[B, n_slots * cap] magnitudes of each score's terms: ||q - c_l||^2 +
+    db_sq (L2) or |<c_l, q>| + ||q|| ||r|| (IP) on residual codes, else
+    q_sq + db_sq or ||q|| ||x||: the 1e-5 tolerance of the SQ codecs' tests
+    is taken of these."""
+    db, db_sq, _, _, q, q_sq, lists = args
+    B, S = lists.shape
+    sel = lists.long().clamp(0, db.shape[0] - 1)
+    cents = codec["centroids"]
+    if cents is None:
+        cents = torch.zeros((db.shape[0], q.shape[1]), device=q.device)
+    cl = cents[sel]                                        # [B, S, d]
+    if metric is Metric.L2:
+        t = ((q[:, None, :] - cl) ** 2).sum(-1)[:, :, None] + db_sq[sel]
+    else:
+        t = ((cl * q[:, None, :]).sum(-1).abs()[:, :, None]
+             + q_sq.sqrt()[:, None, None] * db_sq[sel].sqrt())
+    return t.reshape(B, S * db.shape[1])
+
+
+# (d, M): dsub 2, 4 and 6 at d 96, and dsub 6 at d 18 (d % 4 != 0: the
+# scalar dots and the byte copies of 3-byte slots)
+PQ_CASES = [(d, M, res) for d, M in ((96, 48), (96, 24), (96, 16), (18, 3))
+            for res in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, M, residual", PQ_CASES)
+def test_k2_pq_matches_plain_version(d, M, residual):
+    """K2 on PQ codes against its plain version: ids equal, scores within
+    1e-5 of their terms, on the worklist with inactive entries, ragged
+    sizes and out-of-range ids; every query on one list longer than a tile
+    (more than a chunk of entries); batch 1; and every probe dead."""
+    dev = _card()
+    for nlist, cap, B, n_slots, lists in ((40, 200, 64, 6, None),
+                                          (16, 300, 100, 2, "one"),
+                                          (40, 77, 1, 8, None),
+                                          (8, 64, 5, 3, "dead")):
+        args, codec = pq_inputs(nlist, cap, d, M, B, n_slots, dev, residual,
+                                seed=d + M + B)
+        if lists is not None:
+            args[6] = torch.full((B, n_slots), 5 if lists == "one" else -1,
+                                 dtype=torch.int32, device=dev)
+        for metric in (Metric.L2, Metric.IP):
+            before = scan_scores.launches
+            got_s, got_i = scan_scores(*args, metric, **codec)
+            torch.cuda.synchronize()
+            assert scan_scores.launches == before + 1
+            want_s, want_i = scan_scores_ref(*args, metric, **codec)
+            assert torch.equal(got_i, want_i)
+            fin = torch.isfinite(want_s)
+            assert torch.equal(torch.isfinite(got_s), fin)
+            tol = 1e-5 * pq_terms(args, codec, metric) + 1e-6
+            assert bool(((got_s - want_s).abs() <= tol)[fin].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, M", [(96, 16), (96, 24), (18, 3)])
+def test_k2_pq_decode_bitwise(d, M):
+    """With unit queries a dot is one decoded element, so plain PQ's IP
+    scores are the codebook's values bit for bit; residual IP adds <c_l,
+    e_i> = c_l[i] to them, one rounding, as the plain version does."""
+    dev = _card()
+    n, cap = 6, 40
+    for residual in (False, True):
+        args, codec = pq_inputs(n, cap, d, M, d, n, dev, residual, seed=3)
+        args[2] = torch.arange(n * cap, dtype=torch.int32,
+                               device=dev).reshape(n, cap)
+        args[3] = torch.full((n,), cap, dtype=torch.int32, device=dev)
+        args[4] = torch.eye(d, device=dev)
+        args[5] = torch.ones(d, device=dev)
+        args[6] = torch.arange(n, dtype=torch.int32, device=dev).repeat(d, 1)
+        got, _ = scan_scores(*args, Metric.IP, **codec)
+        want, _ = scan_scores_ref(*args, Metric.IP, **codec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k2_pq_refuses_what_it_cannot_hold():
+    """A codebook wider than shared memory holds raises ValueError on the
+    card (never the plain version), and K1 refuses PQ codes."""
+    dev = _card()
+    d = MAX_D_PQ + 4
+    args, codec = pq_inputs(4, 16, d, d // 4, 2, 2, dev, True)
+    with pytest.raises(ValueError, match="MAX_D_PQ"):
+        scan_scores(*args, Metric.L2, **codec)
+    args, codec = pq_inputs(4, 16, 16, 4, 2, 2, dev, True)
+    with pytest.raises(ValueError):
+        rowscan_scores(*args, Metric.L2, **codec)
+
+
+def _pq_slice(device, arrays):
+    """The padded path on PQ storage at the fixture's size, on the given
+    arrays moved to ``device``: profile training, calibration, a window
+    and batch-1 windows, then fixed-nprobe search with and without the
+    polysemous filter."""
+    centers, _, xq = make_data()
+    a = arrays._replace(**{f: getattr(arrays, f).to(device)
+                           for f in arrays._fields
+                           if isinstance(getattr(arrays, f), torch.Tensor)})
+    idx = att.IVFFlatIndex.from_state(centers, a)
+    gt_D, gt_I = idx.exact_search(xq, MAX_TOPK)
+    es = att.ErrorSys(idx, train_num=N_TRAIN + N_TEST, max_topk=MAX_TOPK)
+    es.set_gt(gt_D, gt_I)
+    es.sys_train(N_TRAIN, xq)
+    es.set_topk(K)
+    es.set_queries(N_TEST, xq, np.full(N_TRAIN + N_TEST, ACC, np.float32))
+    es.calibrate(0, N_TRAIN, target_bound=ACC, std_m_grid=(1.0, 4.0))
+    D_out, I_out = es.search(N_TRAIN, N_TEST)
+    out = dict(gt_I=gt_I, D=D_out, I=I_out, mult=es.multipler,
+               np=es.my_nprobe[N_TRAIN:].copy(),
+               ns=es.n_scanned[N_TRAIN:].copy())
+    D1, I1 = es.search(N_TRAIN + 1, 1)
+    out.update(D1=D1, I1=I1)
+    out["Df"], out["If"] = idx.search(xq, K, nprobe=6)
+    idx.polysemous_ht = 12
+    out["Dh"], out["Ih"] = idx.search(xq, K, nprobe=6)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [True, False])
+def test_pq_slice_on_the_card_matches_the_cpu(residual):
+    """The PQ slice on the same state on the card (K2 decodes the codes)
+    and on the CPU (its plain version): equal ids and decisions."""
+    dev = _card()
+    centers, xb, _ = make_data()
+    build = att.IVFFlatIndex(D, NLIST, device="cpu", storage="pq4",
+                             pq_residual=residual)
+    build.set_centroids(centers)
+    build.add(xb)
+    cpu = _pq_slice("cpu", build.arrays)
+    k1, k2 = rowscan_scores.launches, scan_scores.launches
+    card = _pq_slice(dev, build.arrays)
+    assert scan_scores.launches > k2 and rowscan_scores.launches == k1
+    assert card["mult"] == cpu["mult"]
+    for name in ("gt_I", "I", "np", "ns", "I1", "If", "Ih"):
+        np.testing.assert_array_equal(card[name], cpu[name])
+    for name in ("D", "D1", "Df", "Dh"):
+        np.testing.assert_allclose(card[name], cpu[name], rtol=1e-5,
+                                   atol=1e-5)

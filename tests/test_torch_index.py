@@ -144,10 +144,16 @@ def test_pack_matches_jax_layout(cap_quantile):
 
 
 def test_storage_codecs_not_ported_raise():
-    # the SQ and bf16 codecs are ported (tests/test_torch_codecs.py); PQ
-    # is not
+    # the SQ and bf16 codecs (tests/test_torch_codecs.py) and PQ
+    # (tests/test_torch_pq.py) are ported; a storage name the JAX package
+    # does not know, PQ whose M does not divide d, and the IMI coarse
+    # quantizer raise
+    assert IVFFlatIndex(D, NLIST, storage="pq8", device=DEVICE).storage \
+        == "pq8"
     with pytest.raises(NotImplementedError):
-        IVFFlatIndex(D, NLIST, storage="pq8", device=DEVICE)
+        IVFFlatIndex(D, NLIST, storage="lsh8", device=DEVICE)
+    with pytest.raises(ValueError):
+        IVFFlatIndex(D, NLIST, storage="pq5", device=DEVICE)
     with pytest.raises(NotImplementedError):
         IVFFlatIndex(D, NLIST, coarse="imi", device=DEVICE)
 

@@ -292,14 +292,17 @@ def test_trained_only_file_cross_load(tmp_path):
 
 
 def test_other_kinds_raise(tmp_path):
-    from auncel_tpu.index.flat import FlatIndex
+    """A kind the JAX package writes and the port does not load yet (the
+    binary flat index) raises naming its ROADMAP.md item, and an index the
+    port cannot write raises."""
+    from auncel_tpu.index.binary import BinaryFlatIndex
     from auncel_tpu.index.io import save_index as jsave
     from auncel_tpu_torch.index.io import load_index, save_index
-    fl = FlatIndex(8)
-    fl.add(np.zeros((3, 8), np.float32))
-    jsave(fl, str(tmp_path / "flat.npz"))
+    bf = BinaryFlatIndex(16)
+    bf.add(np.zeros((3, 2), np.uint8))
+    jsave(bf, str(tmp_path / "bflat.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_index(str(tmp_path / "flat.npz"), device=DEVICE)
+        load_index(str(tmp_path / "bflat.npz"), device=DEVICE)
     with pytest.raises(NotImplementedError):
         save_index(object(), str(tmp_path / "x.npz"))
 

@@ -94,6 +94,24 @@ def codec_fixture(storage: str):
 
 
 @functools.lru_cache(maxsize=None)
+def pq_fixture(residual: bool = True, metric: str = "l2", M: int = 4):
+    """A JAX index with PQ storage ("pqM", residual or plain) on the
+    fixture's centroids and vectors, without the multi-row layout (which
+    refuses PQ), and the same state carried into the port: (JAX index,
+    port index), the port's on the CPU."""
+    from auncel_tpu.index.ivf import IVFFlatIndex as JIVF
+    from auncel_tpu_torch.convert import ivf_arrays_from_numpy
+    from auncel_tpu_torch.index.ivf import IVFFlatIndex
+    f = jax_fixture()
+    jidx = JIVF(D, NLIST, metric=metric, storage=f"pq{M}",
+                pq_residual=residual)
+    jidx.set_centroids(f["centers"])
+    jidx.add(f["xb"])
+    arrays = ivf_arrays_from_numpy(as_numpy(jidx.arrays), DEVICE)
+    return jidx, IVFFlatIndex.from_state(f["centers"], arrays, metric=metric)
+
+
+@functools.lru_cache(maxsize=None)
 def port_state():
     """The fixture's JAX state carried into the port: (index, arrays,
     multirow, traces), all on the CPU."""
