@@ -15,7 +15,13 @@ version on the CPU.
 The index layer a user reaches through ``index_factory``: ``FlatIndex``,
 IVF on every ported storage (f32, bf16, SQ, and PQ on the padded layout,
 whose probes K2 scores, ``kernels/scan_scores.py``), ``IndexPQ``, the
-transforms, ``IndexRefineFlat`` and ``IndexIDMap``.
+transforms, ``IndexRefineFlat`` and ``IndexIDMap``. Beyond one resident
+index: ``index/ondisk.py`` serves an index directory from disk (fixed
+and error-bounded search, paging only the probed lists), ``index/aux.py``
+has range search and removal, ``index/invlists.py`` and
+``index/ivflib.py`` compose and split inverted lists, and
+``index/meta.py`` federates indexes (shards, dimension splits,
+replicas).
 """
 
 from auncel_tpu_torch.types import Metric

@@ -18,9 +18,19 @@ list's centroid added back; the JAX package writes the decoded residuals
 
 The ``Flat``, ``IVFFlat`` and ``IVFFlatDedup`` kinds are ported; every
 other kind raises ``NotImplementedError``.
+
+The on-disk directory (``save_index_ondisk``; served list by list by
+``index/ondisk.py::OnDiskIVFIndex``, or loaded whole by
+``load_index_ondisk``) is the JAX package's too: ``header.json`` (version,
+kind "IVFFlatOnDisk", d, metric, nlist, ntotal), ``db.npy`` (the stored
+vectors decoded to float32, [nlist, cap, d]), ``vec_ids.npy``,
+``list_sizes.npy`` and ``centroids.npy``. Each package reads the other's
+directory. As with ``save_index``, the port writes a residual-PQ index's
+reconstructions; the JAX package writes the residuals.
 """
 
 import json
+import os
 
 import numpy as np
 
@@ -121,3 +131,41 @@ def load_index(path: str, device="cuda"):
             idx._dup = {int(k): list(v)
                         for k, v in header.get("dup", {}).items()}
         return idx
+
+
+def save_index_ondisk(index: IVFFlatIndex, dirpath: str) -> None:
+    """Write an IVF index as an on-disk directory (the reference's
+    OnDiskInvertedLists capability): the padded list tensor as a raw
+    ``.npy`` that ``OnDiskIVFIndex`` serves without loading it whole."""
+    os.makedirs(dirpath, exist_ok=True)
+    a = index.arrays
+    np.save(os.path.join(dirpath, "db.npy"),
+            np.ascontiguousarray(decoded_db(a), np.float32))
+    np.save(os.path.join(dirpath, "vec_ids.npy"), a.vec_ids.cpu().numpy())
+    np.save(os.path.join(dirpath, "list_sizes.npy"),
+            a.list_sizes.cpu().numpy())
+    np.save(os.path.join(dirpath, "centroids.npy"), index.centroids)
+    header = dict(version=_FORMAT_VERSION, kind="IVFFlatOnDisk", d=index.d,
+                  metric=index.metric.value, nlist=index.nlist,
+                  ntotal=index.ntotal)
+    with open(os.path.join(dirpath, "header.json"), "w") as f:
+        json.dump(header, f)
+
+
+def load_index_ondisk(dirpath: str, device="cuda") -> IVFFlatIndex:
+    """A resident float32 IVFFlatIndex on ``device`` from an on-disk
+    directory: this reads the whole corpus (for a corpus larger than the
+    card, serve the directory with ``OnDiskIVFIndex``)."""
+    with open(os.path.join(dirpath, "header.json")) as f:
+        header = json.load(f)
+    if header["kind"] != "IVFFlatOnDisk":
+        raise ValueError(f"{dirpath} holds kind {header['kind']!r}, not an "
+                         "on-disk IVF directory")
+    idx = IVFFlatIndex(header["d"], header["nlist"],
+                       Metric.parse(header["metric"]), device=device)
+    idx.set_centroids(np.load(os.path.join(dirpath, "centroids.npy")))
+    db = np.load(os.path.join(dirpath, "db.npy"), mmap_mode="r")
+    vec_ids = np.load(os.path.join(dirpath, "vec_ids.npy"), mmap_mode="r")
+    mask = vec_ids >= 0
+    idx.add(np.asarray(db[mask]), ids=np.asarray(vec_ids[mask], np.int64))
+    return idx

@@ -19,8 +19,9 @@ distance (profile mode). The two-phase path runs ``bounded_search_decide``
 (the decision waves only, on a ranking prefix) and then ``finish_scan``
 over each query's remaining budget. ``nprobe_search`` scans exact
 per-query probe counts and ``budgeted_search`` converts latency budgets to
-such counts (the time-budget mode). Not ported yet: the externally ranked
-on-disk decide phase (``bounded_search_decide_ranked``).
+such counts (the time-budget mode). ``bounded_search_decide_ranked`` is
+phase A over an externally ranked and remapped probe set: the on-disk
+index (``index/ondisk.py``) passes the paged blocks as ``arrays.db``.
 """
 
 import numpy as np
@@ -190,6 +191,33 @@ def bounded_search_decide(
                          decide_margin=decide_margin)
 
 
+def bounded_search_decide_ranked(
+    arrays: IVFArrays,
+    traces: TraceSet,
+    q: torch.Tensor,
+    require_acc: torch.Tensor,
+    multipler: torch.Tensor,
+    std_m: torch.Tensor,
+    cdis: torch.Tensor,        # [B, rank_k] coarse distances (true ranking)
+    cids: torch.Tensor,        # [B, rank_k] true list ids (geometry)
+    scan_slots: torch.Tensor,  # [B, rank_k] block ids into arrays.db
+    query_k: int,
+    max_topk: int,
+    metric: Metric,
+):
+    """Phase A over an externally ranked and remapped probe set, the
+    on-disk path (the reference's OnDiskInvertedLists plugged into the
+    tune branch, OnDiskInvertedLists.h:51 + IndexIVF.cpp:497-673):
+    ``arrays.db`` holds only the paged decision lists, ``scan_slots`` maps
+    each ranked probe slot to its block, and the boundary geometry reads
+    the true list ids ``cids`` with the full ``arrays.interdis``. Returns
+    what ``bounded_search_decide`` returns; decisions and ids are the
+    resident padded engine's."""
+    return _bounded_impl(arrays, traces, q, require_acc, multipler, std_m,
+                         query_k, max_topk, metric, decide_only=True,
+                         ranked=(cdis, cids, scan_slots))
+
+
 def finish_scan(arrays: IVFArrays, q: torch.Tensor, q_sq: torch.Tensor,
                 vals: torch.Tensor, ids: torch.Tensor, my_np: torch.Tensor,
                 start: int, width: int, metric: Metric):
@@ -203,16 +231,26 @@ def finish_scan(arrays: IVFArrays, q: torch.Tensor, q_sq: torch.Tensor,
 
 
 def _bounded_impl(arrays, traces, q, require_acc, multipler, std_m, query_k,
-                  max_topk, metric, decide_only, decide_margin=False):
+                  max_topk, metric, decide_only, decide_margin=False,
+                  ranked=None):
     B = q.shape[0]
     dev = q.device
     nlist = arrays.nlist
     q_sq = sqnorms(q)
-    # decide-only needs the ranking prefix only: nlist/8 probe slots and
-    # the boundary window; finish_scan ranks all lists for the stragglers
-    rank_k = min(nlist, n_boundaries(nlist) + 1) if decide_only else nlist
-    rank_k = max(rank_k, min(nlist, nlist // 8))
-    cdis, cids = coarse_rank(arrays, q, metric, q_sq=q_sq, rank_k=rank_k)
+    if ranked is None:
+        # decide-only needs the ranking prefix only: nlist/8 probe slots
+        # and the boundary window; finish_scan ranks all lists for the
+        # stragglers
+        rank_k = min(nlist, n_boundaries(nlist) + 1) if decide_only \
+            else nlist
+        rank_k = max(rank_k, min(nlist, nlist // 8))
+        cdis, cids = coarse_rank(arrays, q, metric, q_sq=q_sq,
+                                 rank_k=rank_k)
+        scan_slots = cids
+    else:
+        # externally ranked and remapped probes (the on-disk path): cids
+        # stay true list ids for the geometry, scan_slots index the blocks
+        cdis, cids, scan_slots = ranked
     dtb = boundary_distances(cdis, cids, arrays.interdis, metric)
     vals, ids = init_topk((B,), max_topk, metric, dev)
 
@@ -243,8 +281,8 @@ def _bounded_impl(arrays, traces, q, require_acc, multipler, std_m, query_k,
         if not need:
             break
         limit = torch.where(my_np > 0, my_np, nlist)
-        vals, ids = scan_probe_range(arrays, q, q_sq, cids, vals, ids, limit,
-                                     wave_prev, width, metric)
+        vals, ids = scan_probe_range(arrays, q, q_sq, scan_slots, vals, ids,
+                                     limit, wave_prev, width, metric)
         # the predicate only decides undecided queries
         if stage > nlist // 8 or not any_undecided:
             continue

@@ -5,7 +5,9 @@ slots are and are not a multiple of 16 bytes; K2 on PQ codes, residual and
 plain, at dsub 2, 4 and 6), and the bounded-search slices (the multi-row
 path, on float32 and SQ8 storage, and the padded path, on float32 and PQ
 storage) on the card against the same slices on the CPU, where the
-kernels' plain versions run. The entry points' default device is checked
+kernels' plain versions run; K2 on a block batch paged from an on-disk
+directory, ``range_search`` with K2 against its plain version, and the
+on-disk index on the card against the CPU. The entry points' default device is checked
 everywhere. This file imports no jax, so it also runs where jax is not
 installed, without the suite's conftest:
 
@@ -598,3 +600,105 @@ def test_pq_slice_on_the_card_matches_the_cpu(residual):
     for name in ("D", "D1", "Df", "Dh"):
         np.testing.assert_allclose(card[name], cpu[name], rtol=1e-5,
                                    atol=1e-5)
+
+
+def _ondisk_dir(tmp_path):
+    """The fixture's index written as an on-disk directory, and its
+    profile: (directory, profile path)."""
+    from auncel_tpu_torch.index.io import save_index_ondisk
+    centers, xb, xq = make_data()
+    idx = att.IVFFlatIndex(D, NLIST, device="cpu")
+    idx.set_centroids(centers)
+    idx.add(xb)
+    gt_D, gt_I = idx.exact_search(xq, MAX_TOPK)
+    es = att.ErrorSys(idx, train_num=N_TRAIN + N_TEST, max_topk=MAX_TOPK)
+    es.set_gt(gt_D, gt_I)
+    es.sys_train(N_TRAIN, xq)
+    save_index_ondisk(idx, str(tmp_path / "ondisk"))
+    es.save_profile(str(tmp_path / "profile.npz"))
+    return str(tmp_path / "ondisk"), str(tmp_path / "profile.npz")
+
+
+@pytest.mark.cuda
+def test_k2_on_paged_blocks_matches_plain_version(tmp_path):
+    """K2 on a block batch paged from disk (the stored list sizes, norms
+    computed from the paged vectors) against its plain version, within
+    1e-5 of q_sq + db_sq."""
+    from auncel_tpu_torch.index.ondisk import OnDiskIVFIndex
+    from auncel_tpu_torch.ops.distance import sqnorms
+    dev = _card()
+    path, _ = _ondisk_dir(tmp_path)
+    od = OnDiskIVFIndex(path, device=dev)
+    _, _, xq = make_data()
+    q = torch.as_tensor(xq, device=dev)
+    _, cids = od._coarse(q, 6)
+    blocks, block_ids, sizes, uniq = od._page_blocks(cids.cpu().numpy())
+    assert np.array_equal(sizes.cpu().numpy(), od.list_sizes[uniq])
+    a = od._compact(blocks, block_ids, sizes)
+    probe = torch.as_tensor(np.searchsorted(uniq, cids.cpu().numpy())
+                            .astype(np.int32), device=dev)
+    args = (a.db, a.db_sq, a.vec_ids, a.list_sizes, q, sqnorms(q), probe)
+    before = scan_scores.launches
+    got_s, got_i = scan_scores(*args, Metric.L2)
+    want_s, want_i = scan_scores_ref(*args, Metric.L2)
+    torch.cuda.synchronize()
+    assert scan_scores.launches == before + 1
+    assert torch.equal(got_i, want_i) and (got_i >= 0).any()
+    fin = torch.isfinite(want_s)
+    assert torch.equal(torch.isfinite(got_s), fin)
+    terms = (sqnorms(q)[:, None, None]
+             + a.db_sq[probe.long()]).reshape(q.shape[0], -1)
+    assert bool(((got_s - want_s).abs()[fin] <= 1e-5 * terms[fin]
+                 + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_range_search_kernel_matches_plain_version(monkeypatch):
+    """range_search with K2 against the same function with K2's plain
+    version on the same card tensors."""
+    import auncel_tpu_torch.index.aux as aux
+    dev = _card()
+    centers, xb, xq = make_data()
+    idx = att.IVFFlatIndex(D, NLIST, device=dev)
+    idx.set_centroids(centers)
+    idx.add(xb)
+    v, _ = idx.search(xq, K, nprobe=4)
+    radius = float(np.median(v[:, K - 1]))
+    before = scan_scores.launches
+    got = aux.range_search(idx, xq, radius, nprobe=12)
+    assert scan_scores.launches > before and got.lims[-1] > 0
+    monkeypatch.setattr(aux, "scan_scores", scan_scores_ref)
+    want = aux.range_search(idx, xq, radius, nprobe=12)
+    np.testing.assert_array_equal(got.lims, want.lims)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    np.testing.assert_allclose(got.distances, want.distances, rtol=1e-5,
+                               atol=1e-5)
+
+
+def _ondisk_slice(path, profile, device):
+    """Fixed-nprobe and bounded search (some queries past nlist/8) of an
+    on-disk directory served on ``device``."""
+    from auncel_tpu_torch.index.ondisk import OnDiskIVFIndex
+    od = OnDiskIVFIndex(path, device=device)
+    od.attach_profile(profile, multipler=8.0, std_m=1.0, max_topk=MAX_TOPK)
+    _, _, xq = make_data()
+    out = {}
+    out["D"], out["I"] = od.search(xq, K, nprobe=8)
+    acc = np.full(len(xq), ACC, np.float32)
+    out["Db"], out["Ib"], out["ns"] = od.search_bounded(xq, acc, K)
+    return out
+
+
+@pytest.mark.cuda
+def test_ondisk_on_the_card_matches_the_cpu(tmp_path):
+    dev = _card()
+    path, profile = _ondisk_dir(tmp_path)
+    cpu = _ondisk_slice(path, profile, "cpu")
+    before = scan_scores.launches
+    card = _ondisk_slice(path, profile, dev)
+    assert scan_scores.launches > before
+    assert (card["ns"] > NLIST // 8).any()
+    for name in ("I", "Ib", "ns"):
+        np.testing.assert_array_equal(card[name], cpu[name])
+    for name in ("D", "Db"):
+        np.testing.assert_allclose(card[name], cpu[name], rtol=1e-5)
