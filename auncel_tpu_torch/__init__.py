@@ -15,7 +15,10 @@ version on the CPU.
 The index layer a user reaches through ``index_factory``: ``FlatIndex``,
 IVF on every ported storage (f32, bf16, SQ, and PQ on the padded layout,
 whose probes K2 scores, ``kernels/scan_scores.py``), ``IndexPQ``, the
-transforms, ``IndexRefineFlat`` and ``IndexIDMap``. Beyond one resident
+transforms, ``IndexRefineFlat`` and ``IndexIDMap``, and the other
+non-graph families: IMI product cells (``index/imi.py``), ``IndexIVFPQR``,
+``Index2Layer``, the binary indexes (``index/binary.py``, with
+``index_binary_factory``) and LSH (``index/lsh.py``). Beyond one resident
 index: ``index/ondisk.py`` serves an index directory from disk (fixed
 and error-bounded search, paging only the probed lists), ``index/aux.py``
 has range search and removal, ``index/invlists.py`` and

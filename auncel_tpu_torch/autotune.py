@@ -11,11 +11,12 @@ fixed nprobe: the "one global knob" that Auncel's per-query bounds beat.
 ``ParameterSpace.explore`` sweeps nprobe on the index's own device.
 ``MatrixStats`` reports dataset diagnostics.
 
-The knobs: ``nprobe`` and ``max_codes`` of an ``IVFFlatIndex``, the
-polysemous ``ht`` of an ``IVFFlatIndex`` or ``IndexPQ``, and ``k_factor``
-of an ``IndexRefineFlat`` (whose other knobs reach its base); a knob of an
-index family the port does not serve yet (HNSW's ``efSearch``, IVFPQR's
-``k_factor``) raises ``ValueError``.
+The knobs: ``nprobe`` and ``max_codes`` of an ``IVFFlatIndex`` (swept over
+2^8 ... 2^19 and unlimited on IMI cells), the polysemous ``ht`` of an
+``IVFFlatIndex`` or ``IndexPQ``, and ``k_factor`` of an
+``IndexRefineFlat`` (whose other knobs reach its base) or an
+``IndexIVFPQR`` (swept over 1 ... 64); a knob of an index family the port
+does not serve yet (HNSW's ``efSearch``) raises ``ValueError``.
 """
 
 import time
@@ -25,6 +26,7 @@ import numpy as np
 
 from auncel_tpu_torch.index.flat import IndexRefineFlat
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
+from auncel_tpu_torch.index.ivfpqr import IndexIVFPQR
 from auncel_tpu_torch.index.pq_index import IndexPQ
 from auncel_tpu_torch.types import Metric
 
@@ -103,15 +105,18 @@ def intersection_at_r(I: np.ndarray, gt_I: np.ndarray, R: int) -> float:
 def set_index_parameter(index, name: str, value) -> None:
     """One knob (reference ParameterSpace::set_index_parameter,
     AutoTune.cpp:455-520): ``k_factor`` of an ``IndexRefineFlat`` (any
-    other knob goes to its base), ``nprobe`` and ``max_codes`` (infinity
-    means unlimited, 0) of an ``IVFFlatIndex``, and ``ht`` (or
+    other knob goes to its base) or an ``IndexIVFPQR``
+    (AutoTune.cpp:534-538), ``nprobe`` and ``max_codes`` (infinity means
+    unlimited, 0) of an ``IVFFlatIndex``, and ``ht`` (or
     ``polysemous_ht``) of an ``IVFFlatIndex`` or ``IndexPQ``."""
     if isinstance(index, IndexRefineFlat):
         if name == "k_factor":
             index.k_factor = float(value)
             return
         return set_index_parameter(index.base, name, value)
-    if name == "nprobe" and isinstance(index, IVFFlatIndex):
+    if name == "k_factor" and isinstance(index, IndexIVFPQR):
+        index.k_factor = float(value)
+    elif name == "nprobe" and isinstance(index, IVFFlatIndex):
         index.nprobe = int(value)
     elif (name in ("ht", "polysemous_ht")
           and isinstance(index, (IndexPQ, IVFFlatIndex))):
@@ -142,9 +147,10 @@ def _ht_range(nbits: int) -> list[int]:
 class ParameterSpace:
     """Parameter sweep with the worst-case criterion over the knobs the
     index exposes (reference ParameterSpace::initialize,
-    AutoTune.cpp:353-408): nprobe for IVF, ht for polysemous PQ (IVF or
-    flat), k_factor for the refine wrapper, cartesian over the wrapper's
-    knob and its base's."""
+    AutoTune.cpp:353-408): nprobe for IVF (with k_factor for IVFPQR and
+    max_codes on IMI cells), ht for polysemous PQ (IVF or flat), k_factor
+    for the refine wrapper, cartesian over the wrapper's knob and its
+    base's."""
 
     def __init__(self, index):
         self.index = index
@@ -167,6 +173,14 @@ class ParameterSpace:
                     + self.parameter_ranges(index.base))
         if isinstance(index, IVFFlatIndex):
             dims = [("nprobe", self.candidate_nprobes())]
+            if isinstance(index, IndexIVFPQR):
+                # AutoTune.cpp:401-406: powers of two up to 64
+                dims.append(("k_factor", [1 << i for i in range(7)]))
+            if index.coarse == "imi":
+                # the reference ranges max_codes only over a
+                # MultiIndexQuantizer (AutoTune.cpp:388-399)
+                dims.append(("max_codes",
+                             [1 << i for i in range(8, 20)] + [np.inf]))
             if index.polysemous:
                 # the reference sweeps ht on IVFPQ too
                 dims.append(("ht", _ht_range(8 * int(index.storage[2:]))))

@@ -7,7 +7,12 @@ Each function takes the JAX package's state as a dict of numpy arrays
 ``MultiRowArrays``), so this module imports no jax. The LAET regressor's
 weights are the ones carried across. The storage codec comes across as it
 is: float32 or bfloat16 vectors, SQ codes with their range, or PQ codes
-with their codebooks. With them both packages compute on identical state. The tensors go to the card unless
+with their codebooks. The other index families come across from their
+trained state: IMI product centroids (and MultiIndexQuantizer codebooks),
+IVFPQR's codes with its refine state, ``Index2Layer``'s centroids, books,
+list ids and codes, the binary indexes' codes and centroid bits, and the
+LSH indexes' rotation, thresholds, period and centroids. With them both
+packages compute on identical state. The tensors go to the card unless
 ``device`` says otherwise.
 """
 
@@ -15,6 +20,14 @@ import numpy as np
 import torch
 
 from auncel_tpu_torch.baselines.laet import MLP
+from auncel_tpu_torch.index.binary import BinaryFlatIndex, BinaryIVFIndex
+from auncel_tpu_torch.index.imi import MultiIndexQuantizer
+from auncel_tpu_torch.index.io import ivfpqr_from_codes
+from auncel_tpu_torch.index.ivf import IVFFlatIndex
+from auncel_tpu_torch.index.lsh import IndexLSH, IVFSpectralHashIndex
+from auncel_tpu_torch.index.twolayer import Index2Layer
+from auncel_tpu_torch.ops.pq import PQCodebooks
+from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.index.scan import IVFArrays, RowArrays
 from auncel_tpu_torch.index.multirow import MultiRowArrays
 from auncel_tpu_torch.profile.trace import TraceSet, traces_from_arrays
@@ -82,3 +95,110 @@ def mlp_from_numpy(state: dict, device="cuda"):
             getattr(mlp, f).copy_(torch.from_numpy(
                 np.array(state[f], np.float32)))
     return mlp.to(device)
+
+
+def imi_from_numpy(centroids: np.ndarray, state: dict | None = None,
+                   metric=Metric.L2, multirow: dict | None = None,
+                   device="cuda") -> IVFFlatIndex:
+    """An IMI index (``coarse="imi"``) on the JAX package's product
+    centroids: trained and empty without ``state``, else on its packed
+    arrays (and multi-row layout) as ``IVFFlatIndex.from_state`` shares
+    them."""
+    centroids = np.asarray(centroids, np.float32)
+    if state is None:
+        idx = IVFFlatIndex(centroids.shape[1], centroids.shape[0], metric,
+                           device=device, coarse="imi")
+        idx.set_centroids(centroids)
+        return idx
+    mr = None if multirow is None else multirow_from_numpy(multirow, device)
+    return IVFFlatIndex.from_state(centroids,
+                                   ivf_arrays_from_numpy(state, device),
+                                   metric, multirow=mr, coarse="imi")
+
+
+def miq_from_numpy(codebooks: list, nbits: int, cls=MultiIndexQuantizer,
+                   device="cuda", **kw):
+    """A trained MultiIndexQuantizer (``cls``: or MultiIndexQuantizer2,
+    with its ``assign_indexes`` in ``kw``, filled with the codebooks) on
+    the JAX package's per-subspace codebooks."""
+    books = [np.array(b, np.float32) for b in codebooks]
+    d = sum(b.shape[1] for b in books)
+    miq = cls(d, len(books), nbits, device=device, **kw)
+    miq.codebooks = books
+    miq.is_trained = True
+    for m, sub in enumerate(getattr(miq, "assign_indexes", ())):
+        sub.reset()
+        sub.add(books[m])
+    return miq
+
+
+def ivfpqr_from_numpy(state: dict, device="cuda"):
+    """An IndexIVFPQR holding the JAX package's codes exactly: ``state``
+    has the ``IVFPQR`` file's header fields (d, nlist, M, M_refine,
+    k_factor, metric, ntotal) and payload (centroids, db, vec_ids,
+    list_sizes, pq_books, refine_books, refine_codes, refine_sorted_ids,
+    refine_pos); ``add`` is refused, as after loading the file."""
+    return ivfpqr_from_codes(state, state, device)
+
+
+def twolayer_from_numpy(state: dict, device="cuda") -> Index2Layer:
+    """An Index2Layer from d, nlist, M, metric, centroids, books [M, 256,
+    d/M], list_ids and codes."""
+    idx = Index2Layer(state["d"], state["nlist"], M=state["M"],
+                      metric=state.get("metric", Metric.L2), device=device)
+    idx.centroids = np.asarray(state["centroids"], np.float32)
+    idx._pq = PQCodebooks(torch.as_tensor(
+        np.array(state["books"], np.float32), device=idx.device))
+    idx.is_trained = True
+    idx.list_ids = np.asarray(state["list_ids"], np.int32)
+    idx.codes = np.asarray(state["codes"], np.uint8)
+    return idx
+
+
+def binary_from_numpy(state: dict, device="cuda"):
+    """A BinaryFlatIndex from d and the packed ``codes``, or with
+    ``centroid_bits`` (and nlist, nprobe) a BinaryIVFIndex."""
+    codes = np.asarray(state["codes"], np.uint8)
+    if state.get("centroid_bits") is None:
+        idx = BinaryFlatIndex(state["d"], device=device)
+    else:
+        idx = BinaryIVFIndex(state["d"], state["nlist"], device=device)
+        idx.centroid_bits = np.asarray(state["centroid_bits"], np.uint8)
+        idx.is_trained = True
+        idx.nprobe = state.get("nprobe", 1)
+    if codes.shape[0]:
+        idx.add(codes)
+    return idx
+
+
+def lsh_from_numpy(state: dict, device="cuda") -> IndexLSH:
+    """An IndexLSH from d, nbits, rotate_data, train_thresholds, rrot,
+    thresholds and its {0, 1} ``bits`` [n, nbits]."""
+    idx = IndexLSH(state["d"], state["nbits"],
+                   rotate_data=state["rotate_data"],
+                   train_thresholds=state["train_thresholds"], device=device)
+    if state.get("rrot") is not None:
+        idx.rrot = np.asarray(state["rrot"], np.float32)
+    idx.thresholds = np.asarray(state["thresholds"], np.float32)
+    idx.is_trained = True
+    idx._bits = np.asarray(state["bits"], np.int8)
+    return idx
+
+
+def spectral_hash_from_numpy(state: dict, device="cuda"
+                             ) -> IVFSpectralHashIndex:
+    """A trained IVFSpectralHashIndex from d, nlist, nbit, threshold_type,
+    period, rrot, centroids and trained (the per-list thresholds), with
+    the stored vectors ``x`` and ids ``ids`` queued (encoded at the first
+    search, as in the JAX package)."""
+    idx = IVFSpectralHashIndex(state["d"], state["nlist"], state["nbit"],
+                               period=state["period"],
+                               threshold_type=state["threshold_type"],
+                               device=device)
+    idx.rrot = np.array(state["rrot"], np.float32)
+    idx.centroids = np.array(state["centroids"], np.float32)
+    idx.trained = np.array(state["trained"], np.float32)
+    idx.is_trained = True
+    if state.get("x") is not None and len(state["x"]):
+        idx.add(state["x"], state["ids"])
+    return idx

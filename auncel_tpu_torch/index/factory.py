@@ -4,10 +4,14 @@ reference grammar of ``AutoTune.cpp:741-960``).
 Served: the transform prefixes ``PCAn``, ``PCARn``, ``OPQm``, ``RR`` and
 ``L2norm``; the cells ``Flat``, ``PQm``, ``SQ8``, ``SQ4``, ``SQ6``,
 ``SQfp16`` and ``SQbf16`` (fp16 maps to bf16, as in the JAX package);
-``IVFn,{Flat,SQ8,SQ4,SQ6,SQfp16,SQbf16,PQm}``; and the ``,RFlat`` and
-``IDMap`` wrappers. A description the JAX package builds but the port does
-not yet raises ``NotImplementedError`` naming its ``ROADMAP.md`` item;
-anything else raises as the JAX package does.
+``IVFn,{Flat,SQ8,SQ4,SQ6,SQfp16,SQbf16,PQm}`` and the same cells over IMI
+product cells, ``IMI2xb,...`` (nlist = 4^b, ``index/imi.py``);
+``IVFn,PQm+r`` (``IndexIVFPQR``), ``LSHn[r][t]`` (``IndexLSH``: r rotates,
+t trains thresholds) and ``IVFn,SHn`` (``IVFSpectralHashIndex``); and the
+``,RFlat`` and ``IDMap`` wrappers. The HNSW cells, which the JAX package
+builds, raise ``NotImplementedError`` naming their ``ROADMAP.md`` item;
+anything else raises as the JAX package does. Binary descriptions go
+through ``index/binary.py::index_binary_factory``.
 """
 
 import re
@@ -16,6 +20,8 @@ from auncel_tpu_torch.index.base import Index
 from auncel_tpu_torch.index.flat import (FlatIndex, IndexRefineFlat,
                                          IndexScalarQuantizer)
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
+from auncel_tpu_torch.index.ivfpqr import IndexIVFPQR
+from auncel_tpu_torch.index.lsh import IndexLSH, IVFSpectralHashIndex
 from auncel_tpu_torch.index.meta import IndexIDMap
 from auncel_tpu_torch.index.pq_index import IndexPQ
 from auncel_tpu_torch.index.transform import (
@@ -26,10 +32,6 @@ from auncel_tpu_torch.types import Metric
 # cells of the JAX package's grammar that the port does not build yet
 _NOT_PORTED = (
     (r"HNSW.*", "HNSW indexes (index/hnsw.py)"),
-    (r"LSH(\d+)?(r)?(t)?", "LSH (index/lsh.py)"),
-    (r"IVF\d+,SH\d*", "IVF spectral hashing (index/lsh.py)"),
-    (r"IVF\d+,PQ\d+\+\d+", "IVFPQR (index/ivfpqr.py)"),
-    (r"IMI2x\d+,\w+", "the IMI coarse quantizer (index/imi.py)"),
     (r"IVF\d+_HNSW\d+,\w+", "the HNSW coarse quantizer (index/hnsw.py)"),
 )
 
@@ -77,7 +79,7 @@ def index_factory(d: int, description: str, metric: Metric = Metric.L2,
         if re.fullmatch(pattern, desc):
             raise NotImplementedError(
                 f"factory description {description!r}: {what} is not "
-                f"ported yet (ROADMAP.md queue 1 item 7)")
+                f"ported yet (ROADMAP.md queue 1 item 7.3)")
     if desc == "Flat":
         index: Index = FlatIndex(cur_d, metric, device=device)
     elif re.fullmatch(r"PQ(\d+)", desc):
@@ -85,12 +87,35 @@ def index_factory(d: int, description: str, metric: Metric = Metric.L2,
     elif desc in _SQ_CELLS:
         index = IndexScalarQuantizer(cur_d, qtype=_SQ_CELLS[desc],
                                      metric=metric, device=device)
+    elif m := re.fullmatch(r"LSH(\d+)?(r)?(t)?", desc):
+        # sign-bit signatures (IndexLSH.h:21)
+        index = IndexLSH(cur_d, nbits=int(m.group(1) or cur_d),
+                         rotate_data=bool(m.group(2)),
+                         train_thresholds=bool(m.group(3)), device=device)
+    elif m := re.fullmatch(r"IVF(\d+),SH(\d+)?", desc):
+        # IVF over spectral-hash codes (IndexIVFSpectralHash.h:30)
+        index = IVFSpectralHashIndex(cur_d, nlist=int(m.group(1)),
+                                     nbit=int(m.group(2) or cur_d),
+                                     device=device)
+    elif m := re.fullmatch(r"IVF(\d+),PQ(\d+)\+(\d+)", desc):
+        # IVFPQ with the refinement PQ re-rank (AutoTune.cpp:854-866; L2
+        # only there, as IndexIVFPQR enforces)
+        index = IndexIVFPQR(cur_d, int(m.group(1)), M=int(m.group(2)),
+                            M_refine=int(m.group(3)), metric=metric,
+                            device=device)
     else:
-        m = re.fullmatch(r"IVF(\d+),(\w+)", desc)
-        if not m:
-            raise NotImplementedError(
-                f"factory description {description!r}")
-        nlist, cell = int(m.group(1)), m.group(2)
+        coarse = "kmeans"
+        m = re.fullmatch(r"IMI2x(\d+),(\w+)", desc)
+        if m:
+            # inverted multi-index cells (AutoTune.cpp:807): (2^b)^2
+            nlist, cell, coarse = (1 << int(m.group(1))) ** 2, m.group(2), \
+                "imi"
+        else:
+            m = re.fullmatch(r"IVF(\d+),(\w+)", desc)
+            if not m:
+                raise NotImplementedError(
+                    f"factory description {description!r}")
+            nlist, cell = int(m.group(1)), m.group(2)
         if cell == "Flat":
             storage = "f32"
         elif cell in _SQ_CELLS:
@@ -105,7 +130,7 @@ def index_factory(d: int, description: str, metric: Metric = Metric.L2,
                 f"IVF cell type {cell!r} not implemented yet (reference "
                 f"grammar: AutoTune.cpp:741-960)")
         index = IVFFlatIndex(cur_d, nlist, metric, device=device,
-                             storage=storage)
+                             storage=storage, coarse=coarse)
 
     if want_rflat:
         index = IndexRefineFlat(index)

@@ -1,5 +1,5 @@
-"""Index files (port of the Flat and IVF-Flat parts of
-``auncel_tpu/index/io.py``).
+"""Index files (port of ``auncel_tpu/index/io.py`` but its binary HNSW
+kind).
 
 The layout is the JAX package's: one ``.npz`` holding a JSON ``header``
 (version, kind, d, metric, and for the IVF kinds nlist, trained, ntotal,
@@ -16,8 +16,17 @@ harness. The port writes a residual-PQ index's reconstructions, each
 list's centroid added back; the JAX package writes the decoded residuals
 (``ROADMAP.md`` section 3).
 
-The ``Flat``, ``IVFFlat`` and ``IVFFlatDedup`` kinds are ported; every
-other kind raises ``NotImplementedError``.
+An IMI index is written as kind ``IVFFlat`` (the header carries no
+coarse quantizer, as in the JAX package). The exact kinds keep their
+codes: ``IVFPQR`` (header M, M_refine, k_factor, nlist, ntotal; payload
+the centroids, the first-stage codes ``db`` with ``vec_ids``,
+``list_sizes`` and ``pq_books``, and the refine state ``refine_books``,
+``refine_codes``, ``refine_sorted_ids``, ``refine_pos``; it loads as
+residual PQ, and a loaded index refuses ``add``, since the raw vectors
+are gone), ``2Layer`` (``centroids``, ``books``, ``list_ids``,
+``codes``), ``BFlat`` (the packed ``codes``) and ``BIVF`` (``codes``,
+``centroid_bits``, nprobe). The ``BHNSW`` kind raises
+``NotImplementedError`` until the HNSW port.
 
 The on-disk directory (``save_index_ondisk``; served list by list by
 ``index/ondisk.py::OnDiskIVFIndex``, or loaded whole by
@@ -34,9 +43,17 @@ import os
 
 import numpy as np
 
+import torch
+
+from auncel_tpu_torch.index.binary import BinaryFlatIndex, BinaryIVFIndex
 from auncel_tpu_torch.index.flat import FlatIndex
 from auncel_tpu_torch.index.ivf import (IVFFlatDedupIndex, IVFFlatIndex,
-                                        decoded_db)
+                                        _decoded_norms, decoded_db)
+from auncel_tpu_torch.index.ivfpqr import IndexIVFPQR
+from auncel_tpu_torch.index.scan import IVFArrays
+from auncel_tpu_torch.index.twolayer import Index2Layer
+from auncel_tpu_torch.ops.distance import sqnorms
+from auncel_tpu_torch.ops.pq import PQCodebooks
 from auncel_tpu_torch.types import Metric
 
 _FORMAT_VERSION = 1
@@ -44,27 +61,53 @@ _FORMAT_VERSION = 1
 # kinds the JAX package writes that the port does not load yet, and the
 # ROADMAP.md item that ports each
 _NOT_PORTED = {
-    "IVFPQR": "queue 1 item 7 (ivfpqr.py)",
-    "2Layer": "queue 1 item 7 (twolayer.py)",
-    "BFlat": "queue 1 item 7 (binary.py)",
-    "BIVF": "queue 1 item 7 (binary.py)",
-    "BHNSW": "queue 1 item 7 (binary.py)",
+    "BHNSW": "queue 1 item 7.3 (binary.py's BinaryHNSWIndex)",
 }
 
 
 def save_index(index, path: str) -> None:
-    """Write a flat index, or an IVF-Flat (or dedup) index, trained or not,
-    empty or not."""
+    """Write a flat, IVF-Flat (or dedup, or IMI), IVFPQR, two-layer or
+    binary (flat, IVF) index, trained or not, empty or not."""
     if isinstance(index, FlatIndex):
         header = dict(version=_FORMAT_VERSION, kind="Flat", d=index.d,
                       metric=index.metric.value)
         np.savez(path, header=json.dumps(header), xb=index.xb)
         return
+    if isinstance(index, IndexIVFPQR):
+        _save_ivfpqr(index, path)
+        return
+    if isinstance(index, Index2Layer):
+        header = dict(version=_FORMAT_VERSION, kind="2Layer", d=index.d,
+                      metric=index.metric.value, nlist=index.nlist,
+                      M=index.M, trained=index.is_trained)
+        payload = dict(header=json.dumps(header))
+        if index.is_trained:
+            payload["centroids"] = index.centroids
+            payload["books"] = index._pq.codebooks.cpu().numpy()
+        payload["list_ids"] = index.list_ids
+        payload["codes"] = index.codes
+        np.savez(path, **payload)
+        return
+    if isinstance(index, BinaryFlatIndex):
+        header = dict(version=_FORMAT_VERSION, kind="BFlat", d=index.d,
+                      metric=index.metric.value)
+        np.savez(path, header=json.dumps(header), codes=index.codes)
+        return
+    if isinstance(index, BinaryIVFIndex):
+        header = dict(version=_FORMAT_VERSION, kind="BIVF", d=index.d,
+                      metric=index.metric.value, nlist=index.nlist,
+                      nprobe=index.nprobe, trained=index.is_trained,
+                      coarse_hnsw_m=index.coarse_hnsw_m)
+        payload = dict(header=json.dumps(header), codes=index._codes)
+        if index.is_trained:
+            payload["centroid_bits"] = index.centroid_bits
+        np.savez(path, **payload)
+        return
     if not isinstance(index, IVFFlatIndex):
         raise NotImplementedError(
-            f"cannot serialize {type(index).__name__}: the port writes "
-            "Flat, IVFFlat and IVFFlatDedup files only (ROADMAP.md queue 1 "
-            "item 7)")
+            f"cannot serialize {type(index).__name__}: the port writes the "
+            "Flat, IVFFlat, IVFFlatDedup, IVFPQR, 2Layer, BFlat and BIVF "
+            "kinds (the HNSW family waits, ROADMAP.md queue 1 item 7.3)")
     dedup = isinstance(index, IVFFlatDedupIndex)
     storage = "f32" if index.storage.startswith("pq") else index.storage
     header = dict(version=_FORMAT_VERSION,
@@ -102,6 +145,8 @@ def load_index(path: str, device="cuda"):
             raise NotImplementedError(
                 f"index kind {kind!r} is not ported: ROADMAP.md "
                 f"{_NOT_PORTED[kind]}")
+        if kind in _LOADERS:
+            return _LOADERS[kind](z, header, device)
         if kind not in ("IVFFlat", "IVFFlatDedup"):
             raise ValueError(f"unrecognized index file {path}")
         dedup = kind == "IVFFlatDedup"
@@ -131,6 +176,101 @@ def load_index(path: str, device="cuda"):
             idx._dup = {int(k): list(v)
                         for k, v in header.get("dup", {}).items()}
         return idx
+
+
+def _save_ivfpqr(index: IndexIVFPQR, path: str) -> None:
+    """Both PQ stages' codes as they are (the reference's write_index for
+    IndexIVFPQR keeps them too, index_io.cpp)."""
+    sorted_ids, pos, codes, books = index._ensure_refine()
+    a = index.arrays
+    header = dict(version=_FORMAT_VERSION, kind="IVFPQR", d=index.d,
+                  metric=index.metric.value, nlist=index.nlist,
+                  M=int(index.storage[2:]), M_refine=index.M_refine,
+                  k_factor=index.k_factor, ntotal=index.ntotal)
+    np.savez(path, header=json.dumps(header), centroids=index.centroids,
+             db=a.db.cpu().numpy(), vec_ids=a.vec_ids.cpu().numpy(),
+             list_sizes=a.list_sizes.cpu().numpy(),
+             pq_books=a.pq_codebooks.cpu().numpy(),
+             refine_books=books.cpu().numpy(),
+             refine_codes=codes.cpu().numpy(),
+             refine_sorted_ids=np.asarray(sorted_ids),
+             refine_pos=pos.cpu().numpy())
+
+
+def ivfpqr_from_codes(state, header: dict, device="cuda") -> IndexIVFPQR:
+    """An IndexIVFPQR on ``device`` holding given codes exactly (an
+    ``IVFPQR`` file's payload, or the JAX package's state by
+    ``convert.ivfpqr_from_numpy``): residual PQ, as the JAX package loads
+    it, the norms of the decoded residuals, and ``add`` refused."""
+    idx = IndexIVFPQR(header["d"], header["nlist"], M=header["M"],
+                      M_refine=header["M_refine"],
+                      k_factor=header["k_factor"],
+                      metric=Metric.parse(header["metric"]), device=device)
+    idx.set_centroids(np.asarray(state["centroids"], np.float32))
+    dev = idx.device
+
+    def t(name, dtype):
+        return torch.as_tensor(np.ascontiguousarray(
+            np.asarray(state[name]).astype(dtype)), device=dev)
+    cents = torch.as_tensor(idx.centroids, device=dev)
+    arrays = IVFArrays(
+        centroids=cents, cent_sq=sqnorms(cents), db=t("db", np.uint8),
+        db_sq=None, vec_ids=t("vec_ids", np.int32),
+        list_sizes=t("list_sizes", np.int32),
+        interdis=torch.as_tensor(
+            idx.interdis if idx.interdis is not None
+            else np.zeros((1, 1), np.float32), device=dev),
+        pq_codebooks=t("pq_books", np.float32), pq_residual=True)
+    idx._arrays = arrays._replace(db_sq=_decoded_norms(arrays))
+    idx._ntotal = int(header["ntotal"])
+    idx._refine = (np.asarray(state["refine_sorted_ids"]).astype(np.int64),
+                   t("refine_pos", np.int32), t("refine_codes", np.uint8),
+                   t("refine_books", np.float32))
+    idx._refine_of = idx._arrays
+    idx._frozen_codes = True
+    return idx
+
+
+def _load_2layer(z, header: dict, device) -> Index2Layer:
+    idx = Index2Layer(header["d"], header["nlist"], M=header["M"],
+                      metric=Metric.parse(header["metric"]), device=device)
+    if header["trained"]:
+        idx.centroids = np.asarray(z["centroids"], np.float32)
+        idx._pq = PQCodebooks(torch.as_tensor(
+            np.asarray(z["books"], np.float32), device=idx.device))
+        idx.is_trained = True
+    idx.list_ids = np.asarray(z["list_ids"], np.int32)
+    idx.codes = np.asarray(z["codes"], np.uint8)
+    return idx
+
+
+def _load_bflat(z, header: dict, device) -> BinaryFlatIndex:
+    idx = BinaryFlatIndex(header["d"], device=device)
+    if z["codes"].shape[0]:
+        idx.add(np.asarray(z["codes"], np.uint8))
+    return idx
+
+
+def _load_bivf(z, header: dict, device) -> BinaryIVFIndex:
+    idx = BinaryIVFIndex(header["d"], header["nlist"],
+                         coarse_hnsw_m=header.get("coarse_hnsw_m"),
+                         device=device)
+    idx.nprobe = header.get("nprobe", 1)
+    if header["trained"]:
+        idx.centroid_bits = np.asarray(z["centroid_bits"], np.uint8)
+        idx.is_trained = True
+    codes = np.asarray(z["codes"], np.uint8)
+    if codes.shape[0]:
+        idx.add(codes)
+    return idx
+
+
+_LOADERS = {
+    "IVFPQR": ivfpqr_from_codes,
+    "2Layer": _load_2layer,
+    "BFlat": _load_bflat,
+    "BIVF": _load_bivf,
+}
 
 
 def save_index_ondisk(index: IVFFlatIndex, dirpath: str) -> None:

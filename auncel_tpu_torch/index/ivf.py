@@ -18,8 +18,12 @@ layouts, and adds to the ``index/aux.py`` counters. Stored vectors come
 back decoded through the codec (``reconstruct`` and its family; residual
 PQ with its list's centroid added back), ``update_vectors`` repacks with
 the SQ range kept, and ``IVFFlatDedupIndex`` stores each distinct vector
-once. Not ported yet: the IMI and HNSW coarse quantizers; each raises
-``NotImplementedError``.
+once. ``coarse="imi"`` trains the IMI product cells
+(``index/imi.py``: nlist = K^2 cells, the product centroids materialised),
+which every layout, engine and search route then serves as ordinary
+centroids; the inter-centroid matrix waits above ``INTERDIS_EAGER_MAX``
+lists until ``ensure_interdis``. Not ported yet: the HNSW coarse
+quantizer (``NotImplementedError``).
 """
 
 import re
@@ -150,14 +154,16 @@ class IVFFlatIndex(Index):
         if M is not None and (M <= 0 or d % M):
             raise ValueError(f"storage {storage!r}: d={d} is not divisible "
                              f"by M={M}")
-        if coarse != "kmeans":
+        if coarse not in ("kmeans", "imi"):
             raise NotImplementedError(
-                f"coarse quantizer {coarse!r}: only 'kmeans' is ported")
+                f"coarse quantizer {coarse!r}: the port trains 'kmeans' "
+                f"and 'imi'")
         self.d = d
         self.nlist = nlist
         self.metric = Metric.parse(metric)
         self.device = resolve(device)
         self.storage = storage
+        self.coarse = coarse   # "kmeans" | "imi" (IMI2x%d product cells)
         self.sq_rangestat = sq_rangestat
         self.sq_rangestat_arg = float(sq_rangestat_arg)
         self.pq_residual = pq_residual
@@ -186,7 +192,8 @@ class IVFFlatIndex(Index):
     @classmethod
     def from_state(cls, centroids: np.ndarray, arrays: IVFArrays,
                    metric: Metric = Metric.L2,
-                   multirow: MultiRowArrays | None = None) -> "IVFFlatIndex":
+                   multirow: MultiRowArrays | None = None,
+                   coarse: str = "kmeans") -> "IVFFlatIndex":
         """An index on given centroids, packed arrays and (optionally)
         multi-row layout, for example the JAX package's state carried over
         by ``convert``, so both packages compute on identical index state.
@@ -194,7 +201,8 @@ class IVFFlatIndex(Index):
         arrays' storage codec. The stored vectors stay queued too, decoded,
         and an SQ index keeps its range, so a later ``add`` re-encodes the
         same codes (a PQ index trains its codebooks again on the decoded
-        vectors)."""
+        vectors). ``coarse`` names the quantizer that trained the centroids
+        ("imi" for IMI product cells)."""
         nlist, d = np.asarray(centroids).shape
         if arrays.sq_scale is not None:
             storage = sq_kind(arrays.db.shape[-1], d)
@@ -203,7 +211,7 @@ class IVFFlatIndex(Index):
         else:
             storage = "bf16" if arrays.db.dtype == torch.bfloat16 else "f32"
         idx = cls(d, nlist, metric, device=arrays.db.device, storage=storage,
-                  pq_residual=arrays.pq_residual)
+                  pq_residual=arrays.pq_residual, coarse=coarse)
         idx.centroids = np.asarray(centroids, np.float32)
         idx.interdis = arrays.interdis.cpu().numpy()
         idx.is_trained = True
@@ -224,9 +232,14 @@ class IVFFlatIndex(Index):
     def train(self, x: np.ndarray) -> None:
         x = np.asarray(x, np.float32)
         assert x.shape[1] == self.d
-        res = kmeans(x, self.nlist, self.kmeans_params, self.metric,
-                     device=self.device)
-        self.set_centroids(res.centroids)
+        if self.coarse == "imi":
+            from auncel_tpu_torch.index.imi import train_imi_centroids
+            self.set_centroids(train_imi_centroids(
+                x, self.nlist, self.metric, self.kmeans_params, self.device))
+        else:
+            res = kmeans(x, self.nlist, self.kmeans_params, self.metric,
+                         device=self.device)
+            self.set_centroids(res.centroids)
 
     def set_centroids(self, centroids: np.ndarray) -> None:
         centroids = np.array(centroids, np.float32)   # a writable copy

@@ -5,7 +5,8 @@ of the wrapped indexes' own searches.
 
 ``IndexIDMap`` and ``IndexIDMap2`` remap sequential ids to user ids;
 ``IndexShards`` fans a query out to every shard and merges the top-k by
-value; ``IndexSplitVectors`` composes k=1 searches over dimension slices;
+value (binary shards too: packed uint8 codes in, integer distances
+out); ``IndexSplitVectors`` composes k=1 searches over dimension slices;
 ``IndexReplicas`` round-robins whole queries across identical replicas.
 """
 
@@ -21,14 +22,18 @@ def kway_merge_topk(vals: np.ndarray, ids: np.ndarray,
     -> ([B, k], [B, k]). A stable sort over (shard, rank) order, so a tie
     goes to the earlier shard, then the better rank: the JAX package's
     ``native.kway_merge_topk`` (its C++ merge and its numpy fallback both
-    keep that order)."""
+    keep that order). Integer distances (the binary indexes' Hamming
+    distances, their pads at the int32 maximum) stay integers, as the
+    numpy merge keeps them; float ones come back float32."""
     S, B, k = vals.shape
     flat_v = np.transpose(vals, (1, 0, 2)).reshape(B, S * k)
     flat_i = np.transpose(ids, (1, 0, 2)).reshape(B, S * k)
     order = np.argsort(flat_v if lower_is_better else -flat_v, axis=1,
                        kind="stable")[:, :k]
-    return (np.take_along_axis(flat_v, order, 1).astype(np.float32),
-            np.take_along_axis(flat_i, order, 1).astype(np.int64))
+    out_v = np.take_along_axis(flat_v, order, 1)
+    if not np.issubdtype(out_v.dtype, np.integer):
+        out_v = out_v.astype(np.float32)
+    return out_v, np.take_along_axis(flat_i, order, 1).astype(np.int64)
 
 
 class IndexIDMap(Index):

@@ -54,7 +54,27 @@ window whose stragglers take phase B, and time_search at batch 1); then
 each
 kernel against its plain version on the index's own arrays, K2 at the
 shapes the main path gives it (the window's waves, a training chunk, batch
-1 and one list probed by every query); then
+1 and one list probed by every query); then, on the same corpus,
+  [imi]            "IMI2x7,Flat": 16384 IMI product cells trained on 400k
+                   vectors (their size spread and both layouts' bytes
+                   printed before the index is packed), served on the
+                   multi-row layout by ErrorSys: profile training (K2),
+                   calibration, the held-out window at bound 0.9 (mean
+                   recall@10 >= 0.9 or the run fails; the worst case and
+                   bound_ok reported, not checked), 200 batch-1 queries,
+                   fixed-nprobe search at nprobe 64 with and without
+                   max_codes 4096, and K1 and K2 against their plain
+                   versions at the largest calls of the path;
+  [2layer]         Index2Layer(128, 1024, M=16), moved by transfer_to_ivfpq
+                   into a residual-PQ IVF index served at nprobe 32 (K2
+                   launched; reconstructions bitwise reconstruct_n's), and
+                   its exact decoded search, recall@10 of both reported;
+  [binary]         the corpus hashed by "LSH128r", its codes in BFlat and
+                   "BIVF1024" (nprobe 16, and 1024 equal to BFlat), and
+                   "IVF1024,SH64" at nprobe 16, each equal to the same
+                   index on the CPU on 100 queries; times and recall@10
+                   reported;
+then
   [sq8 10M]        the JAX package's headline configuration, synthDeep10M
                    (10M x 96) with IVF1024 + SQ8 storage, built on the
                    card: profile training (K2 on the codes), calibration
@@ -73,7 +93,15 @@ shapes the main path gives it (the window's waves, a training chunk, batch
                    32 without and with the polysemous filter, and K2
                    against its plain version at calls recorded from this
                    path (the window's largest, batch 1, a training
-                   chunk);
+                   chunk); unfiltered, its recall@10 by ids against the
+                   float ground truth is [pqr 10M]'s floor;
+  [pqr 10M]        "IVF1024,PQ16+16" (IVFPQ re-ranked by a refinement PQ,
+                   k_factor 4) on the same corpus and centroids: the stage
+                   times of both PQs, the held-out queries at nprobe 32
+                   (the base search, K2 on the codes, and the re-rank
+                   timed apart), recall@10 by ids at least [pq 10M
+                   fixed]'s or the run fails, reconstruct_batch of 1000
+                   ids equal to the CPU's, K2 against its plain version;
   [eval]           the evaluation harness's experiments on the card
                    (auncel_tpu_torch.eval_harness), from a temporary
                    directory that holds their caches and logs: bound and
@@ -870,7 +898,7 @@ def build_corpus(card: str) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     (gt_D, gt_I), times["exact_search"] = synced(
         lambda: idx.exact_search(xq, MAX_TOPK, batch=N_TRAIN_Q))
-    return dict(idx=idx, xq=xq, gt_D=gt_D, gt_I=gt_I, times=times)
+    return dict(idx=idx, xb=xb, xq=xq, gt_D=gt_D, gt_I=gt_I, times=times)
 
 
 def multirow_path(c: dict, card: str, profile_dir: str | None) -> dict:
@@ -1780,6 +1808,262 @@ def kernels_on_index(c: dict, device, card: str) -> dict:
     return out
 
 
+# [imi]: the 1M corpus over IMI product cells, the JAX README's
+# "IMI2x7,Flat" (README.md:456; the reference's IMI2x%d cell,
+# AutoTune.cpp:807): 2^7 sub-centroids a half, 16384 cells, served on the
+# multi-row layout by ErrorSys (K1 in search, K2 in profile training).
+IMI_NBIT = 7
+IMI_NPROBE, IMI_MAX_CODES = 64, 4096
+N_LATENCY_IMI = 200
+UNCHECKED_IMI = ("reported, not checked: nothing in the repo has measured "
+                 "the worst case over IMI cells")
+
+
+def row_count(sizes: np.ndarray, row_cap: int = 256) -> int:
+    """Rows of the multi-row layout for lists of these sizes (an empty
+    list takes none)."""
+    return int(np.ceil(sizes / row_cap).sum())
+
+
+def imi_phase(c: dict, card: str) -> dict:
+    """[imi]: train the IMI cells on 400k vectors, print the cells' size
+    spread and both layouts' bytes, add the 1M vectors, then profile
+    training, calibration, the held-out window at bound 0.9 (mean recall@10
+    >= 0.9 or the run fails; the worst case and bound_ok reported), 200
+    batch-1 queries and fixed-nprobe search with and without max_codes;
+    then K1 and K2 against their plain versions at the largest calls
+    recorded on this path. Returns the launches and the kernels'
+    numbers."""
+    from auncel_tpu_torch import ErrorSys, Metric, index_factory
+    from auncel_tpu_torch.autotune import recall_counts
+    from auncel_tpu_torch.index.imi import imi_assign
+    from auncel_tpu_torch.profile.trainer import train_profile
+
+    xb, xq, gt_D = c["xb"], c["xq"], c["gt_D"]
+    times = {}
+    idx = index_factory(D, f"IMI2x{IMI_NBIT},Flat")
+    nlist = idx.nlist
+    check(idx.coarse == "imi" and nlist == 4 ** IMI_NBIT
+          and idx.device.type == "cuda", f"IMI index: {idx.coarse} {nlist}")
+    _, times["train"] = synced(lambda: idx.train(xb[:400_000]))
+    _, times["interdis"] = synced(idx.ensure_interdis)
+    sizes, times["assign"] = synced(lambda: np.bincount(
+        imi_assign(xb, idx.centroids), minlength=nlist))
+    cap = -(-int(sizes.max()) // 8) * 8
+    live = sizes[sizes > 0]
+    log(f"[imi] {nlist} product cells over {NB}x{D}: empty {int((sizes == 0).sum())}, "
+        f"median {np.median(sizes):.0f} (of the non-empty {np.median(live):.0f}), "
+        f"p99 {np.percentile(sizes, 99):.0f}, max {int(sizes.max())}; padded "
+        f"layout (cap {cap}) {nlist * cap * (D * 4 + 8) / 2**30:.3f} GiB, "
+        f"multi-row layout {row_count(sizes)} rows of 256, "
+        f"{row_count(sizes) * 256 * (D * 4 + 8) / 2**30:.3f} GiB; interdis "
+        f"{nlist * nlist * 4 / 2**30:.3f} GiB [{card}]")
+    _, times["add+pack"] = synced(lambda: (idx.add(xb), idx.arrays))
+    mr, times["multirow"] = synced(lambda: idx.enable_multirow())
+    a = idx.arrays
+    moved = int(np.abs(a.list_sizes.cpu().numpy() - sizes).sum())
+    log(f"[imi] packed: cap {a.cap}, rows {mr.rows.db.shape[0]}x"
+        f"{mr.rows.db.shape[1]} (cell sizes differing from the per-subspace "
+        f"assignment's, summed: {moved}), allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    reset_counts()
+    es = ErrorSys(idx, train_num=N_TRAIN_Q + N_TEST_Q, max_topk=MAX_TOPK)
+    es.set_gt(gt_D, c["gt_I"])
+    (_, times["sys_train"]), train = counted(
+        lambda: synced(lambda: es.sys_train(N_TRAIN_Q, xq)))
+    es.set_topk(K)
+    es.set_queries(N_TEST_Q, xq,
+                   np.full(N_TRAIN_Q + N_TEST_Q, 1.0 - EPS, np.float32))
+    mult, times["calibrate"] = synced(
+        lambda: es.calibrate(0, N_TRAIN_Q, target_bound=1.0 - EPS))
+    log(f"[imi] calibrate: multipler={mult:.3f} std_m={es.std_m} "
+        f"_dense_min_bsz={es._dense_min_bsz}")
+    win = held_out()
+
+    def serve():
+        ((D_out, I_out), dt), n = counted(
+            lambda: synced(lambda: es.search(N_TRAIN_Q, N_TEST_Q)))
+        return D_out, I_out, dt, n
+    D_out, I_out, _, window = serve()
+    reps = [serve()[2] for _ in range(SEARCH_REPS)]
+    dt = float(np.median(reps))
+    times["search"] = dt
+    cnt = recall_counts(D_out, gt_D[win], K, Metric.L2)
+    check(D_out.shape == (N_TEST_Q, K) and np.isfinite(D_out).all()
+          and (I_out >= 0).all(), "IMI window results")
+    nscan = es.n_scanned[win]
+    log(f"[imi] window of {N_TEST_Q} held-out queries at bound "
+        f"{1.0 - EPS:.1f}: mean recall@{K}={cnt.mean() / K:.4f}, worst "
+        f"{cnt.min() / K:.3f} and bound_ok={bool(cnt.min() >= K * (1 - EPS))}"
+        f" ({UNCHECKED_IMI}); mean n_scanned={nscan.mean():.2f} max="
+        f"{nscan.max()}; times " + " ".join(f"{r * 1e3:.2f}" for r in reps)
+        + f" ms (median {dt * 1e3:.2f} ms, qps {N_TEST_Q / dt:.1f}) "
+        f"launches={window} [{card}]")
+    check(cnt.mean() / K >= 0.9, f"IMI mean recall@{K} {cnt.mean() / K}")
+    lat = serve_batch1(es, N_LATENCY_IMI, card, "imi latency")
+    fixed = {}
+    for max_codes in (0, IMI_MAX_CODES):
+        idx.max_codes = max_codes
+        (Df, If), t_f = synced(lambda: idx.search(xq[win], K,
+                                                  nprobe=IMI_NPROBE))
+        t_f = min(t_f, synced(lambda: idx.search(xq[win], K,
+                                                 nprobe=IMI_NPROBE))[1])
+        cf = recall_counts(Df, gt_D[win], K, Metric.L2)
+        fixed[max_codes] = cf.mean() / K
+        log(f"[imi fixed] B={N_TEST_Q} nprobe={IMI_NPROBE} max_codes="
+            f"{max_codes or 'unlimited'}: {t_f * 1e3:.2f} ms, recall@{K} "
+            f"mean {cf.mean() / K:.4f} worst {cf.min() / K:.3f} [{card}]")
+    idx.max_codes = 0
+    launches = launch_counts()
+    log("[imi stages] " + " ".join(f"{k}={v:.2f}s" for k, v in times.items())
+        + f" [{card}]")
+    log(f"[imi] launches over the path: {launches}, profile training "
+        f"{train}")
+    check(train["scan_scores"] > 0, "IMI profile training never launched K2")
+    check(window["rowscan_scores"] > 0 and lat.get("rowscan_scores", 0) > 0,
+          "IMI search never launched K1")
+    with uncounted():
+        calls = record_row_scans(lambda: es.search(N_TRAIN_Q, N_TEST_Q))
+        big = max(calls, key=lambda x: int((x[1][6] >= 0).sum()))
+        k1 = k1_compare(f"IMI window, the largest of {len(calls)} row scans "
+                        f"({big[0]})", big[1], big[2], card, reps=10,
+                        terms_tol=True, codec=big[3], label="k1 imi")
+        k2_calls = record_row_scans(
+            lambda: train_profile(a, xq[:100], gt_D[:100], MAX_TOPK,
+                                  idx.metric, n_batches=1), "scan_scores")
+        chunk = max(k2_calls, key=lambda x: x[1][6].numel())
+        k2 = k2_compare(f"IMI training chunk, the largest of {len(k2_calls)} "
+                        f"calls (B x n_slots {tuple(chunk[1][6].shape)})",
+                        chunk[1], chunk[2], card, reps=10, terms_tol=True,
+                        codec=chunk[3], label="k2 imi")
+    return {"launches": launches, "kernels": {"rowscan_scores": k1,
+                                              "scan_scores": k2}}
+
+
+def id_recall(ids: np.ndarray, gt_ids: np.ndarray) -> float:
+    """Mean |result ∩ true top-K| / K by ids."""
+    return float(np.mean([len(set(a) & set(b)) / K for a, b in
+                          zip(ids[:, :K].tolist(), gt_ids[:, :K].tolist())]))
+
+
+def twolayer_phase(c: dict, card: str) -> dict:
+    """[2layer]: Index2Layer(128, 1024, M=16) on the 1M corpus, moved into
+    an IVF index by transfer_to_ivfpq and served at nprobe 32 (K2 on the
+    residual PQ codes); its reconstructions bitwise reconstruct_n's; the
+    exact decoded search and the IVF search's recall@10 by ids against
+    the float ground truth, reported. Returns the launches and K2's
+    numbers at the search's largest call."""
+    from auncel_tpu_torch.index.twolayer import Index2Layer
+    xb, xq, gt_I = c["xb"], c["xq"], c["gt_I"]
+    win = held_out()
+    times = {}
+    tl = Index2Layer(D, NLIST, M=16)
+    _, times["train"] = synced(lambda: tl.train(xb[:400_000]))
+    _, times["add"] = synced(lambda: tl.add(xb))
+    ivf, times["transfer"] = synced(tl.transfer_to_ivfpq)
+    a = ivf.arrays
+    check(a.pq_residual and a.db.dtype == torch.uint8 and a.db.is_cuda
+          and ivf.ntotal == NB, "transferred index")
+    same = bool(np.array_equal(ivf.reconstruct_n(0, NB), tl.reconstruct_n()))
+    check(same, "transferred reconstructions differ from reconstruct_n")
+    reset_counts()
+    ((_, I_ivf), t_ivf), n = counted(
+        lambda: synced(lambda: ivf.search(xq[win], K, nprobe=32)))
+    launches = launch_counts()
+    check(n["scan_scores"] > 0, "the transferred index never launched K2")
+    (_, I_tl), t_tl = synced(lambda: tl.search(xq[win], K))
+    log(f"[2layer] Index2Layer({D}, {NLIST}, M=16): code size "
+        f"{tl.code_size} B, cap {a.cap}; transferred reconstructions "
+        f"bitwise reconstruct_n's: {same}; nprobe 32: {t_ivf * 1e3:.2f} ms, "
+        f"recall@{K} (ids, float ground truth) {id_recall(I_ivf, gt_I[win]):.4f}"
+        f"; exact decoded search: {t_tl * 1e3:.2f} ms, recall@{K} "
+        f"{id_recall(I_tl, gt_I[win]):.4f}; launches {n} [{card}]")
+    log("[2layer stages] " + " ".join(f"{k}={v:.2f}s"
+                                      for k, v in times.items())
+        + f" [{card}]")
+    with uncounted():
+        calls = record_row_scans(lambda: ivf.search(xq[win], K, nprobe=32),
+                                 "scan_scores")
+        big = max(calls, key=lambda x: int((x[1][6] >= 0).sum()))
+        k2 = k2_compare(f"2layer nprobe 32, the largest of {len(calls)} "
+                        f"calls (B x n_slots {tuple(big[1][6].shape)})",
+                        big[1], big[2], card, reps=10, terms_tol=True,
+                        codec=big[3], label="k2 2layer")
+    return {"launches": launches, "kernels": k2}
+
+
+N_BINARY_CPU = 100
+
+
+def binary_phase(c: dict, card: str) -> None:
+    """[binary]: the 1M corpus hashed by "LSH128r"; its codes in BFlat and
+    "BIVF1024" (nprobe 16 and 1024, which must equal BFlat's ids and
+    distances), and "IVF1024,SH64" at nprobe 16; each checked on 100
+    queries against the same index on the CPU (BIVF at nprobe 1024
+    through BFlat: it equals BFlat on the card, and BFlat the CPU);
+    times and recall@10 by ids against the float ground truth
+    reported."""
+    from auncel_tpu_torch import convert, index_factory
+    from auncel_tpu_torch.index.binary import index_binary_factory, pack_bits
+    xb, xq, gt_I = c["xb"], c["xq"], c["gt_I"]
+    win = held_out()
+    q = xq[win]
+    times = {}
+    lsh = index_factory(D, "LSH128r")
+    _, times["lsh add"] = synced(lambda: lsh.add(xb))
+    codes, qc = lsh.codes, pack_bits(lsh._encode(q))
+    bflat = index_binary_factory(128, "BFlat")
+    bflat.add(codes)
+    bivf = index_binary_factory(128, f"BIVF{NLIST}")
+    _, times["bivf train"] = synced(lambda: bivf.train(codes[:400_000]))
+    bivf.add(codes)
+    sh = index_factory(D, f"IVF{NLIST},SH64")
+    _, times["sh train"] = synced(lambda: sh.train(xb[:400_000]))
+    sh.add(xb)
+    cpu = {
+        "LSH128r": convert.lsh_from_numpy(dict(
+            d=D, nbits=128, rotate_data=True, train_thresholds=False,
+            rrot=lsh.rrot, thresholds=lsh.thresholds, bits=lsh._bits),
+            "cpu"),
+        "BFlat": convert.binary_from_numpy(dict(d=128, codes=codes), "cpu"),
+        "BIVF": convert.binary_from_numpy(dict(
+            d=128, nlist=NLIST, codes=codes,
+            centroid_bits=bivf.centroid_bits), "cpu"),
+        "SH": convert.spectral_hash_from_numpy(dict(
+            d=D, nlist=NLIST, nbit=64, threshold_type=sh.threshold_type,
+            period=sh.period, rrot=sh.rrot, centroids=sh.centroids,
+            trained=sh.trained, x=xb, ids=np.arange(NB)), "cpu")}
+    runs = (("LSH128r", lsh, lambda x, qq, f: x.search(f, K), None),
+            ("BFlat", bflat, lambda x, qq, f: x.search(qq, K), None),
+            ("BIVF", bivf, lambda x, qq, f: x.search(qq, K, nprobe=16), 16),
+            ("BIVF", bivf, lambda x, qq, f: x.search(qq, K, nprobe=NLIST),
+             NLIST),
+            ("SH", sh, lambda x, qq, f: x.search(f, K, nprobe=16), 16))
+    out = {}
+    for name, idx, fn, nprobe in runs:
+        label = name if nprobe is None else f"{name} nprobe {nprobe}"
+        fn(idx, qc[:8], q[:8])                                   # warm
+        (v, i), t = synced(lambda: fn(idx, qc, q))
+        t = min(t, synced(lambda: fn(idx, qc, q))[1])
+        out[label] = (v, i)
+        same = "through BFlat"
+        if nprobe != NLIST:
+            cv, ci = fn(cpu[name], qc[:N_BINARY_CPU], q[:N_BINARY_CPU])
+            same = bool(np.array_equal(ci, i[:N_BINARY_CPU])
+                        and np.array_equal(cv, v[:N_BINARY_CPU]))
+            check(same, f"[binary] {label} differs from the CPU")
+        log(f"[binary] {label}: {N_TEST_Q} queries {t * 1e3:.2f} ms, "
+            f"recall@{K} (ids, float ground truth) "
+            f"{id_recall(i, gt_I[win]):.4f} (reported, not bounded); equal "
+            f"to the CPU on {N_BINARY_CPU} queries: {same} [{card}]")
+    check(all(np.array_equal(x, y) for x, y in
+              zip(out[f"BIVF nprobe {NLIST}"], out["BFlat"])),
+          f"BIVF at nprobe {NLIST} differs from BFlat")
+    log("[binary stages] " + " ".join(f"{k}={v:.2f}s"
+                                      for k, v in times.items())
+        + f"; BIVF at every list equals BFlat [{card}]")
+
+
 # The JAX package's headline configuration, synthDeep10M with SQ8 storage
 # (README.md "synthDeep10M"; auncel_tpu/eval_harness/common.py:52-77,
 # :103-170), as ``python -m auncel_tpu.eval_harness.bound synthDeep10M 3000
@@ -2029,7 +2313,8 @@ def build_pq10m(corpus: dict, card: str) -> dict:
     return dict(idx=idx, xq=xq, gt_D=gt_D, gt_I=gt_I, times=times)
 
 
-def pq_10m_phase(corpus: dict, card: str, profile_dir: str | None) -> dict:
+def pq_10m_phase(corpus: dict, card: str, profile_dir: str | None,
+                 gt_ids: np.ndarray) -> dict:
     """[pq 10M]: residual IVFPQ on the port's main path, the padded
     engines with K2 on the codes: profile training, calibration, the
     held-out window (worst-case recall@10 >= 0.9 or the run fails) and
@@ -2056,7 +2341,7 @@ def pq_10m_phase(corpus: dict, card: str, profile_dir: str | None) -> dict:
     times["search"] = window["seconds"]
     lat = serve_batch1(es, N_LATENCY10M, card, "pq 10M latency",
                        start=START10M)
-    fixed = fixed_pq10m(idx, xq, gt_D, card)
+    fixed, rec_ids = fixed_pq10m(idx, xq, gt_D, card, gt_ids)
     launches = launch_counts()
     log("[pq 10M stages] " + " ".join(f"{k}={v:.2f}s"
                                       for k, v in times.items())
@@ -2077,14 +2362,16 @@ def pq_10m_phase(corpus: dict, card: str, profile_dir: str | None) -> dict:
     with uncounted():
         kernels = kernels_pq10m(es, xq, card)
     return {"launches": launches, "kernels": kernels,
-            "min_recall": window["min_recall"]}
+            "min_recall": window["min_recall"], "recall_ids": rec_ids}
 
 
-def fixed_pq10m(idx, xq, gt_D, card: str) -> dict:
+def fixed_pq10m(idx, xq, gt_D, card: str, gt_ids: np.ndarray) -> tuple:
     """Fixed-nprobe search of the held-out queries at nprobe 32, then with
     the polysemous filter at each PQ_HT10M (the last keeps every code, so
     its ids equal the unfiltered search's); recall@10 against the ground
-    truth and the time of each. Returns the launches."""
+    truth over the codes (and, unfiltered, by ids against ``gt_ids``, the
+    float ground truth) and the time of each. Returns the launches and the
+    unfiltered recall by ids."""
     from auncel_tpu_torch import Metric
     from auncel_tpu_torch.autotune import recall_counts
     q = xq[START10M:START10M + N_TEST_Q]
@@ -2099,9 +2386,10 @@ def fixed_pq10m(idx, xq, gt_D, card: str) -> dict:
     (D0, I0, t0, c0), n = counted(run)
     check(D0.shape == (N_TEST_Q, K) and np.isfinite(D0).all(),
           "PQ fixed-nprobe results")
+    rec_ids = id_recall(I0, gt_ids)
     log(f"[pq 10M fixed] B={N_TEST_Q} nprobe={nprobe}: {t0 * 1e3:.2f} ms, "
-        f"recall@{K} worst {c0.min() / K:.3f} mean {c0.mean() / K:.4f} "
-        f"[{card}]")
+        f"recall@{K} worst {c0.min() / K:.3f} mean {c0.mean() / K:.4f}; by "
+        f"ids against the float ground truth {rec_ids:.4f} [{card}]")
     total = dict(n)
     for ht in PQ_HT10M:
         idx.polysemous_ht = ht
@@ -2119,7 +2407,7 @@ def fixed_pq10m(idx, xq, gt_D, card: str) -> dict:
             f"recall@{K} worst {ch.min() / K:.3f} mean {ch.mean() / K:.4f}, "
             f"results kept {kept.mean():.4f} [{card}]")
     idx.polysemous_ht = 0
-    return total
+    return total, rec_ids
 
 
 def kernels_pq10m(es, xq, card: str) -> dict:
@@ -2151,6 +2439,107 @@ def kernels_pq10m(es, xq, card: str) -> dict:
             label="k2 pq")
         torch.cuda.empty_cache()
     return {**out["window"], "batch1": out["batch1"], "train": out["train"]}
+
+
+# [pqr 10M]: IVFPQ with the refinement PQ re-rank (the reference's
+# "PQ%d+%d" cell, AutoTune.cpp:854-866) on the synthDeep10M corpus and the
+# [sq8 10M] phase's coarse centroids: "IVF1024,PQ16+16", k_factor 4.
+PQR_NPROBE = 32
+
+
+def float_gt_10m(corpus: dict) -> np.ndarray:
+    """The true top-K ids of the held-out queries over the float corpus
+    (exact kNN on the card)."""
+    from auncel_tpu_torch.ops.knn import knn
+    q = corpus["xq"][START10M:START10M + N_TEST_Q]
+    return knn(q, corpus["xb"], K, device="cuda").ids.astype(np.int64)
+
+
+def pqr_10m_phase(corpus: dict, gt_ids: np.ndarray, pq_recall: float,
+                  card: str) -> dict:
+    """[pqr 10M]: build (the base PQ's training and encoding, the refine
+    PQ's training and encoding, timed apart), serve the 1000 held-out
+    queries at nprobe 32 (the base search and the re-rank timed apart),
+    recall@10 by ids against the float ground truth at least the
+    unfiltered IVFPQ's of [pq 10M fixed] or the run fails;
+    reconstruct_batch of 1000 ids against the same on the CPU; K2 against
+    its plain version at the search's largest call."""
+    import auncel_tpu_torch.index.ivf as ivf
+    import auncel_tpu_torch.index.ivfpqr as ivfpqr
+    from auncel_tpu_torch import index_factory
+    times = {}
+    idx = index_factory(D10M, f"IVF{NLIST},PQ{PQ_M10M}+{PQ_M10M}")
+    check(isinstance(idx, ivfpqr.IndexIVFPQR) and idx.k_factor == 4.0,
+          "the factory's IVFPQR cell")
+    idx.set_centroids(corpus["centroids"])
+    _, times["add"] = synced(lambda: idx.add(corpus["xb"]))
+    with timed_calls(ivf, "train_pq", times, "pq train"), \
+            timed_calls(ivf, "encode_pq", times, "pq encode"):
+        _, times["pack"] = synced(lambda: idx.arrays)
+    with timed_calls(ivfpqr, "train_pq", times, "refine train"), \
+            timed_calls(ivfpqr, "encode_pq", times, "refine encode"):
+        refine, times["refine"] = synced(idx._ensure_refine)
+    a = idx.arrays
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    log(f"[pqr 10M] index: {NB10M}x{D10M} PQ{PQ_M10M}+{PQ_M10M}, nlist "
+        f"{NLIST}, cap {a.cap}; on the card: base codes "
+        f"{nbytes(a.db) / 2**30:.3f} GiB, norms and ids "
+        f"{nbytes(a.db_sq, a.vec_ids) / 2**30:.3f} GiB, refine codes "
+        f"{nbytes(refine[2]) / 2**30:.3f} GiB, slots "
+        f"{nbytes(refine[1]) / 2**30:.3f} GiB; raw vectors kept on the host "
+        f"{idx._raw_x.nbytes / 2**30:.3f} GiB; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    q = corpus["xq"][START10M:START10M + N_TEST_Q]
+    reset_counts()
+    split = {}
+    with timed_calls(ivfpqr, "_rerank", split, "re-rank"):
+        (_, I_out), t_all = synced(lambda: idx.search(q, K,
+                                                       nprobe=PQR_NPROBE))
+    launches = launch_counts()
+    check(launches["scan_scores"] > 0, "IVFPQR search never launched K2")
+    k2 = round(idx.k_factor * K)
+    warm = [synced(lambda: idx.search(q, K, nprobe=PQR_NPROBE))[1]
+            for _ in range(3)]
+    base = [synced(lambda: ivf.IVFFlatIndex.search(
+        idx, q, k2, PQR_NPROBE))[1] for _ in range(3)]
+    rec = id_recall(I_out, gt_ids)
+    log(f"[pqr 10M] B={N_TEST_Q} nprobe={PQR_NPROBE} k_factor "
+        f"{idx.k_factor:g}: search {np.median(warm) * 1e3:.2f} ms (cold "
+        f"{t_all * 1e3:.2f} ms, its re-rank {split['re-rank'] * 1e3:.2f} ms), "
+        f"the base search alone (k {k2}) {np.median(base) * 1e3:.2f} ms; "
+        f"recall@{K} (ids, float ground truth) {rec:.4f} against the "
+        f"unfiltered IVFPQ's {pq_recall:.4f} ([pq 10M fixed]); launches "
+        f"{launches} [{card}]")
+    check(rec >= pq_recall, f"IVFPQR recall@{K} {rec} below IVFPQ's "
+          f"{pq_recall}")
+    keys = np.random.RandomState(3).choice(NB10M, 1000, replace=False)
+    got = idx.reconstruct_batch(keys)
+    sorted_ids, pos, codes, books = refine
+    rows = torch.as_tensor(np.searchsorted(sorted_ids, keys))
+    host = a._replace(db=a.db.cpu(), centroids=a.centroids.cpu(),
+                      pq_codebooks=a.pq_codebooks.cpu())
+    want = ivfpqr.two_stage(host, pos.cpu()[rows], codes.cpu()[rows],
+                            books.cpu()).numpy()
+    same = bool(np.array_equal(got, want))
+    err = float(np.sqrt(((got - corpus["xb"][keys]) ** 2).sum(1)).mean())
+    log(f"[pqr 10M] reconstruct_batch of 1000 ids equal to the CPU's: "
+        f"{same}; mean reconstruction error {err:.4f}")
+    check(same, "IVFPQR reconstructions differ from the CPU's")
+    log("[pqr 10M stages] " + " ".join(f"{k}={v:.2f}s"
+                                       for k, v in times.items())
+        + f" [{card}]")
+    with uncounted():
+        calls = record_row_scans(
+            lambda: ivf.IVFFlatIndex.search(idx, q, k2, PQR_NPROBE),
+            "scan_scores")
+        big = max(calls, key=lambda x: int((x[1][6] >= 0).sum()))
+        kern = k2_compare(f"pqr 10M base search, the largest of {len(calls)}"
+                          f" calls (B x n_slots {tuple(big[1][6].shape)})",
+                          big[1], big[2], card, reps=10, terms_tol=True,
+                          codec=big[3], label="k2 pqr")
+    return {"launches": launches, "kernels": kern, "recall": rec}
 
 
 # [eval]: the evaluation harness's experiments on the card, as
@@ -2465,9 +2854,21 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t0:.1f} s (the [ondisk], [range] "
         f"and [shards] phases {time.perf_counter() - t_od:.1f} s)")
     k2 = kernels_on_index(corpus, device, card)
+    del corpus["idx"]
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    imi = imi_phase(corpus, card)
+    torch.cuda.empty_cache()
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [imi] phase "
+        f"{time.perf_counter() - t_new:.1f} s)")
+    t_new = time.perf_counter()
+    tl = twolayer_phase(corpus, card)
+    torch.cuda.empty_cache()
+    binary_phase(corpus, card)
     del corpus
     torch.cuda.empty_cache()
-    log(f"[total] 1M phases {time.perf_counter() - t0:.1f} s")
+    log(f"[total] 1M phases {time.perf_counter() - t0:.1f} s (the [2layer] "
+        f"and [binary] phases {time.perf_counter() - t_new:.1f} s)")
     t10 = time.perf_counter()
     sq8 = sq8_10m_phase(card, profile_dir)
     corpus10m = sq8.pop("corpus")
@@ -2475,9 +2876,15 @@ def main() -> int:
         f"{time.perf_counter() - t10:.1f} s)")
     torch.cuda.empty_cache()
     t_pq = time.perf_counter()
-    pq = pq_10m_phase(corpus10m, card, profile_dir)
-    del corpus10m
+    gt10m = float_gt_10m(corpus10m)
+    pq = pq_10m_phase(corpus10m, card, profile_dir, gt10m)
     log(f"[total] {time.perf_counter() - t0:.1f} s (the [pq 10M] phase "
+        f"{time.perf_counter() - t_pq:.1f} s)")
+    torch.cuda.empty_cache()
+    t_pq = time.perf_counter()
+    pqr = pqr_10m_phase(corpus10m, gt10m, pq["recall_ids"], card)
+    del corpus10m
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [pqr 10M] phase "
         f"{time.perf_counter() - t_pq:.1f} s)")
     torch.cuda.empty_cache()
     t_eval = time.perf_counter()
@@ -2517,6 +2924,18 @@ def main() -> int:
         {"name": "scan_scores pq", "route": "cuda", "source": k2_src,
          "replaces": k2_tpu, "launches": pq["launches"]["scan_scores"],
          "library_ms": None, **numbers(pq["kernels"])},
+        {"name": "rowscan_scores imi", "route": "cuda", "source": k1_src,
+         "replaces": k1_tpu, "launches": imi["launches"]["rowscan_scores"],
+         "library_ms": None, **numbers(imi["kernels"]["rowscan_scores"])},
+        {"name": "scan_scores imi", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": imi["launches"]["scan_scores"],
+         "library_ms": None, **numbers(imi["kernels"]["scan_scores"])},
+        {"name": "scan_scores 2layer", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": tl["launches"]["scan_scores"],
+         "library_ms": None, **numbers(tl["kernels"])},
+        {"name": "scan_scores pqr", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": pqr["launches"]["scan_scores"],
+         "library_ms": None, **numbers(pqr["kernels"])},
         {"name": "rowscan_scores eval", "route": "cuda", "source": k1_src,
          "replaces": k1_tpu, "launches": ev["launches"]["rowscan_scores"],
          "library_ms": None, **numbers(ev["kernels"]["rowscan_scores"])},

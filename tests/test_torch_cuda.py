@@ -7,7 +7,10 @@ path, on float32 and SQ8 storage, and the padded path, on float32 and PQ
 storage) on the card against the same slices on the CPU, where the
 kernels' plain versions run; K2 on a block batch paged from an on-disk
 directory, ``range_search`` with K2 against its plain version, and the
-on-disk index on the card against the CPU. The entry points' default device is checked
+on-disk index on the card against the CPU; the IMI slice on both layouts,
+IVFPQR, the transferred two-layer index, the binary and LSH indexes on
+the card against the CPU, and K2 on PQ codes at the IMI and transfer
+shapes. The entry points' default device is checked
 everywhere. This file imports no jax, so it also runs where jax is not
 installed, without the suite's conftest:
 
@@ -702,3 +705,190 @@ def test_ondisk_on_the_card_matches_the_cpu(tmp_path):
         np.testing.assert_array_equal(card[name], cpu[name])
     for name in ("D", "Db"):
         np.testing.assert_allclose(card[name], cpu[name], rtol=1e-5)
+
+
+def _imi_slice(device, centroids, layout: str):
+    """ErrorSys over IMI product cells (IMI2x3) at the fixture's size on
+    ``device``: the window, a batch-1 window, the decisions, and
+    fixed-nprobe search with and without max_codes."""
+    _, xb, xq = make_data()
+    idx = convert.imi_from_numpy(centroids, device=device)
+    idx.add(xb)
+    if layout == "multirow":
+        idx.enable_multirow(row_cap=ROW_CAP)
+    gt_D, gt_I = idx.exact_search(xq, MAX_TOPK)
+    es = att.ErrorSys(idx, train_num=N_TRAIN + N_TEST, max_topk=MAX_TOPK)
+    es.set_gt(gt_D, gt_I)
+    es.sys_train(N_TRAIN, xq)
+    es.set_topk(K)
+    es.set_queries(N_TEST, xq, np.full(N_TRAIN + N_TEST, ACC, np.float32))
+    es.set_hyper(4.0, 1.0)
+    D_out, I_out = es.search(N_TRAIN, N_TEST)
+    out = dict(gt_I=gt_I, D=D_out, I=I_out,
+               np=es.my_nprobe[N_TRAIN:].copy(),
+               ns=es.n_scanned[N_TRAIN:].copy())
+    out["D1"], out["I1"] = es.search(N_TRAIN + 3, 1)
+    out["Df"], out["If"] = idx.search(xq, K, nprobe=8)
+    idx.max_codes = 150
+    out["Dm"], out["Im"] = idx.search(xq, K, nprobe=8)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["padded", "multirow"])
+def test_imi_slice_on_the_card_matches_the_cpu(layout):
+    """IMI cells on the card (K1 on the rows, K2 in profile training and on
+    the padded lists) and on the CPU: equal ids and decisions."""
+    from auncel_tpu_torch.index.imi import train_imi_centroids
+    dev = _card()
+    _, xb, _ = make_data()
+    cents = train_imi_centroids(xb, 64, Metric.L2, device="cpu")
+    cpu = _imi_slice("cpu", cents, layout)
+    k1, k2 = rowscan_scores.launches, scan_scores.launches
+    card = _imi_slice(dev, cents, layout)
+    assert scan_scores.launches > k2
+    assert (rowscan_scores.launches > k1) == (layout == "multirow")
+    for name in ("gt_I", "I", "np", "ns", "I1", "If", "Im"):
+        np.testing.assert_array_equal(card[name], cpu[name])
+    for name in ("D", "D1", "Df", "Dm"):
+        np.testing.assert_allclose(card[name], cpu[name], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ivfpqr_on_the_card_matches_the_cpu(tmp_path):
+    """IndexIVFPQR built on the CPU, its file loaded on the card: the base
+    search (K2 on the codes) and the re-rank give the CPU's ids, and the
+    two-stage reconstructions are bitwise the CPU's."""
+    from auncel_tpu_torch.index.io import load_index, save_index
+    from auncel_tpu_torch.index.ivfpqr import IndexIVFPQR
+    dev = _card()
+    _, xb, xq = make_data()
+    cpu = IndexIVFPQR(D, NLIST, M=4, M_refine=8, device="cpu")
+    cpu.train(xb)
+    cpu.add(xb)
+    save_index(cpu, str(tmp_path / "pqr.npz"))
+    card = load_index(str(tmp_path / "pqr.npz"), device=dev)
+    assert card.arrays.db.is_cuda
+    before = scan_scores.launches
+    for k_factor in (1.0, 4.0):
+        for x in (cpu, card):
+            x.k_factor = k_factor
+        cv, ci = card.search(xq, K, nprobe=4)
+        pv, pi = cpu.search(xq, K, nprobe=4)
+        np.testing.assert_array_equal(ci, pi)
+        np.testing.assert_allclose(cv, pv, rtol=1e-5, atol=1e-5)
+    assert scan_scores.launches > before
+    keys = np.arange(0, len(xb), 37, dtype=np.int64)
+    np.testing.assert_array_equal(card.reconstruct_batch(keys),
+                                  cpu.reconstruct_batch(keys))
+
+
+@pytest.mark.cuda
+def test_transferred_twolayer_on_the_card_matches_the_cpu():
+    """Index2Layer's codes moved into inverted lists on the card (cap =
+    the largest list, not rounded) and on the CPU: K2 on the residual PQ
+    codes gives the CPU's ids; reconstructions bitwise reconstruct_n's;
+    the exact decoded search equal."""
+    from auncel_tpu_torch.index.twolayer import Index2Layer
+    dev = _card()
+    _, xb, xq = make_data()
+    cpu = Index2Layer(D, NLIST, M=4, device="cpu")
+    cpu.train(xb)
+    cpu.add(xb[:3001])
+    card = convert.twolayer_from_numpy(dict(
+        d=D, nlist=NLIST, M=4, centroids=cpu.centroids,
+        books=cpu._pq.codebooks.numpy(), list_ids=cpu.list_ids,
+        codes=cpu.codes), device=dev)
+    tc, tp_ = card.transfer_to_ivfpq(), cpu.transfer_to_ivfpq()
+    assert tc.arrays.db.is_cuda
+    np.testing.assert_array_equal(tc.reconstruct_n(0, card.ntotal),
+                                  card.reconstruct_n())
+    before = scan_scores.launches
+    cv, ci = tc.search(xq, K, nprobe=6)
+    assert scan_scores.launches > before
+    pv, pi = tp_.search(xq, K, nprobe=6)
+    np.testing.assert_array_equal(ci, pi)
+    np.testing.assert_allclose(cv, pv, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(card.search(xq, K)[1], cpu.search(xq, K)[1])
+
+
+@pytest.mark.cuda
+def test_binary_and_lsh_on_the_card_match_the_cpu():
+    """BinaryFlat, BinaryIVF (every nprobe to all lists), IndexLSH and the
+    spectral hash on the card and on the CPU, on the same codes and
+    trained state: equal ids and distances."""
+    from auncel_tpu_torch.index import binary as tbin
+    from auncel_tpu_torch.index.lsh import IndexLSH, IVFSpectralHashIndex
+    dev = _card()
+    _, xb, xq = make_data()
+    lsh = IndexLSH(D, 64, rotate_data=True, device="cpu")
+    lsh.add(xb)
+    codes, qcodes = lsh.codes, tbin.pack_bits(lsh._encode(xq))
+    bivf = tbin.BinaryIVFIndex(64, 16, device="cpu")
+    bivf.train(codes)
+    state = dict(d=64, nlist=16, codes=codes,
+                 centroid_bits=bivf.centroid_bits)
+    sh = IVFSpectralHashIndex(D, NLIST, 32, device="cpu")
+    sh.train(xb)
+    sh_state = dict(d=D, nlist=NLIST, nbit=32, threshold_type=sh.threshold_type,
+                    period=sh.period, rrot=sh.rrot, centroids=sh.centroids,
+                    trained=sh.trained, x=xb, ids=np.arange(len(xb)))
+    out = {}
+    for device in ("cpu", dev):
+        res = []
+        flat = convert.binary_from_numpy(dict(d=64, codes=codes), device)
+        res.append(flat.search(qcodes, K))
+        ivf = convert.binary_from_numpy(state, device)
+        for nprobe in (1, 4, 16):
+            res.append(ivf.search(qcodes, K, nprobe=nprobe))
+        res.append(convert.lsh_from_numpy(dict(
+            d=D, nbits=64, rotate_data=True, train_thresholds=False,
+            rrot=lsh.rrot, thresholds=lsh.thresholds, bits=lsh._bits),
+            device).search(xq, K))
+        res.append(convert.spectral_hash_from_numpy(sh_state, device).search(
+            xq, K, nprobe=4))
+        out[str(device)] = res
+    for (cv, ci), (pv, pi) in zip(out[str(dev)], out["cpu"]):
+        np.testing.assert_array_equal(ci, pi)
+        np.testing.assert_array_equal(cv, pv)
+    np.testing.assert_array_equal(out["cpu"][0][0], out["cpu"][3][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlist, cap", [(16384, 61), (1024, 3001)])
+def test_k2_pq_at_imi_and_transfer_shapes(nlist, cap):
+    """K2 on residual PQ codes over many short lists (IMI's 16384 product
+    cells) and over a cap that is no multiple of 8 (transfer_to_ivfpq's
+    layout), against its plain version within 1e-5 of the terms."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d, M, B, S = 128, 16, 64, 8
+    books = torch.randn((M, 256, d // M), generator=gen, device=dev) * 0.1
+    sizes = torch.randint(0, cap + 1, (nlist,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    live = torch.arange(cap, device=dev)[None] < sizes[:, None]
+    db = torch.randint(0, 256, (nlist, cap, M), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    ids = torch.where(live, torch.arange(nlist * cap, device=dev,
+                                         dtype=torch.int32).reshape(nlist,
+                                                                    cap), -1)
+    cents = torch.randn((nlist, d), generator=gen, device=dev) * 0.1
+    dec = decode_pq(PQCodebooks(books), db)
+    db_sq = torch.where(live, (dec * dec).sum(-1), 0.0)
+    del dec
+    q = torch.randn((B, d), generator=gen, device=dev) * 0.1
+    lists = torch.randint(0, nlist, (B, S), generator=gen, device=dev,
+                          dtype=torch.int32)
+    args = (db, db_sq, ids.to(torch.int32), sizes, q, (q * q).sum(-1), lists)
+    codec = dict(pq_codebooks=books, centroids=cents)
+    got_s, got_i = scan_scores(*args, Metric.L2, **codec)
+    want_s, want_i = scan_scores_ref(*args, Metric.L2, **codec)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i, want_i)
+    fin = torch.isfinite(want_s)
+    assert torch.equal(torch.isfinite(got_s), fin)
+    cl = cents[lists.long()]                                  # [B, S, d]
+    terms = (((q[:, None] - cl) ** 2).sum(-1)[:, :, None]
+             + db_sq[lists.long()]).reshape(B, -1)
+    assert ((got_s - want_s).abs()[fin] <= 1e-5 * terms[fin] + 1e-6).all()

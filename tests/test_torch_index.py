@@ -145,17 +145,19 @@ def test_pack_matches_jax_layout(cap_quantile):
 
 def test_storage_codecs_not_ported_raise():
     # the SQ and bf16 codecs (tests/test_torch_codecs.py) and PQ
-    # (tests/test_torch_pq.py) are ported; a storage name the JAX package
-    # does not know, PQ whose M does not divide d, and the IMI coarse
-    # quantizer raise
+    # (tests/test_torch_pq.py) are ported, and so is the IMI coarse
+    # quantizer (tests/test_torch_imi.py); a storage name the JAX package
+    # does not know, PQ whose M does not divide d, and a coarse quantizer
+    # the port does not train raise
     assert IVFFlatIndex(D, NLIST, storage="pq8", device=DEVICE).storage \
         == "pq8"
     with pytest.raises(NotImplementedError):
         IVFFlatIndex(D, NLIST, storage="lsh8", device=DEVICE)
     with pytest.raises(ValueError):
         IVFFlatIndex(D, NLIST, storage="pq5", device=DEVICE)
+    assert IVFFlatIndex(D, 64, coarse="imi", device=DEVICE).coarse == "imi"
     with pytest.raises(NotImplementedError):
-        IVFFlatIndex(D, NLIST, coarse="imi", device=DEVICE)
+        IVFFlatIndex(D, NLIST, coarse="hnsw", device=DEVICE)
 
 
 def test_kmeans_steps_match_jax():

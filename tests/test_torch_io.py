@@ -293,16 +293,16 @@ def test_trained_only_file_cross_load(tmp_path):
 
 def test_other_kinds_raise(tmp_path):
     """A kind the JAX package writes and the port does not load yet (the
-    binary flat index) raises naming its ROADMAP.md item, and an index the
+    binary HNSW index) raises naming its ROADMAP.md item, and an index the
     port cannot write raises."""
-    from auncel_tpu.index.binary import BinaryFlatIndex
+    from auncel_tpu.index.binary import BinaryHNSWIndex
     from auncel_tpu.index.io import save_index as jsave
     from auncel_tpu_torch.index.io import load_index, save_index
-    bf = BinaryFlatIndex(16)
-    bf.add(np.zeros((3, 2), np.uint8))
-    jsave(bf, str(tmp_path / "bflat.npz"))
+    bh = BinaryHNSWIndex(16, M=4)
+    bh.add(np.arange(6, dtype=np.uint8).reshape(3, 2))
+    jsave(bh, str(tmp_path / "bhnsw.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_index(str(tmp_path / "bflat.npz"), device=DEVICE)
+        load_index(str(tmp_path / "bhnsw.npz"), device=DEVICE)
     with pytest.raises(NotImplementedError):
         save_index(object(), str(tmp_path / "x.npz"))
 
