@@ -18,7 +18,10 @@ whose probes K2 scores, ``kernels/scan_scores.py``), ``IndexPQ``, the
 transforms, ``IndexRefineFlat`` and ``IndexIDMap``, and the other
 non-graph families: IMI product cells (``index/imi.py``), ``IndexIVFPQR``,
 ``Index2Layer``, the binary indexes (``index/binary.py``, with
-``index_binary_factory``) and LSH (``index/lsh.py``). Beyond one resident
+``index_binary_factory``) and LSH (``index/lsh.py``); and the HNSW graphs
+(``index/hnsw.py``: flat, SQ8, PQ and two-level storage, binary HNSW, the
+IVF%d_HNSW%d coarse quantizer, and ``index/hnsw_recons.py``'s
+reconstruct-from-neighbours re-rank). Beyond one resident
 index: ``index/ondisk.py`` serves an index directory from disk (fixed
 and error-bounded search, paging only the probed lists), ``index/aux.py``
 has range search and removal, ``index/invlists.py`` and
@@ -29,11 +32,12 @@ replicas).
 
 from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.index.flat import FlatIndex
+from auncel_tpu_torch.index.hnsw import HNSWIndex
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
 from auncel_tpu_torch.index.factory import index_factory
 from auncel_tpu_torch.profile.error_sys import ErrorSys
 
 __version__ = "0.1.0"
 
-__all__ = ["Metric", "FlatIndex", "IVFFlatIndex", "index_factory",
-           "ErrorSys", "__version__"]
+__all__ = ["Metric", "FlatIndex", "HNSWIndex", "IVFFlatIndex",
+           "index_factory", "ErrorSys", "__version__"]

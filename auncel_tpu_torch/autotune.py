@@ -15,8 +15,9 @@ The knobs: ``nprobe`` and ``max_codes`` of an ``IVFFlatIndex`` (swept over
 2^8 ... 2^19 and unlimited on IMI cells), the polysemous ``ht`` of an
 ``IVFFlatIndex`` or ``IndexPQ``, and ``k_factor`` of an
 ``IndexRefineFlat`` (whose other knobs reach its base) or an
-``IndexIVFPQR`` (swept over 1 ... 64); a knob of an index family the port
-does not serve yet (HNSW's ``efSearch``) raises ``ValueError``.
+``IndexIVFPQR`` (swept over 1 ... 64), and ``efSearch`` of an HNSW graph
+(swept over 16 ... 512); a knob the index does not have raises
+``ValueError``.
 """
 
 import time
@@ -25,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from auncel_tpu_torch.index.flat import IndexRefineFlat
+from auncel_tpu_torch.index.hnsw import HNSWIndex
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
 from auncel_tpu_torch.index.ivfpqr import IndexIVFPQR
 from auncel_tpu_torch.index.pq_index import IndexPQ
@@ -107,8 +109,9 @@ def set_index_parameter(index, name: str, value) -> None:
     AutoTune.cpp:455-520): ``k_factor`` of an ``IndexRefineFlat`` (any
     other knob goes to its base) or an ``IndexIVFPQR``
     (AutoTune.cpp:534-538), ``nprobe`` and ``max_codes`` (infinity means
-    unlimited, 0) of an ``IVFFlatIndex``, and ``ht`` (or
-    ``polysemous_ht``) of an ``IVFFlatIndex`` or ``IndexPQ``."""
+    unlimited, 0) of an ``IVFFlatIndex``, ``efSearch`` of an HNSW graph,
+    and ``ht`` (or ``polysemous_ht``) of an ``IVFFlatIndex`` or
+    ``IndexPQ``."""
     if isinstance(index, IndexRefineFlat):
         if name == "k_factor":
             index.k_factor = float(value)
@@ -118,6 +121,8 @@ def set_index_parameter(index, name: str, value) -> None:
         index.k_factor = float(value)
     elif name == "nprobe" and isinstance(index, IVFFlatIndex):
         index.nprobe = int(value)
+    elif name == "efSearch" and isinstance(index, HNSWIndex):
+        index.ef_search = int(value)
     elif (name in ("ht", "polysemous_ht")
           and isinstance(index, (IndexPQ, IVFFlatIndex))):
         index.polysemous_ht = int(value)
@@ -148,9 +153,9 @@ class ParameterSpace:
     """Parameter sweep with the worst-case criterion over the knobs the
     index exposes (reference ParameterSpace::initialize,
     AutoTune.cpp:353-408): nprobe for IVF (with k_factor for IVFPQR and
-    max_codes on IMI cells), ht for polysemous PQ (IVF or flat), k_factor
-    for the refine wrapper, cartesian over the wrapper's knob and its
-    base's."""
+    max_codes on IMI cells), efSearch for HNSW, ht for polysemous PQ (IVF
+    or flat), k_factor for the refine wrapper, cartesian over the
+    wrapper's knob and its base's."""
 
     def __init__(self, index):
         self.index = index
@@ -185,6 +190,8 @@ class ParameterSpace:
                 # the reference sweeps ht on IVFPQ too
                 dims.append(("ht", _ht_range(8 * int(index.storage[2:]))))
             return dims
+        if isinstance(index, HNSWIndex):
+            return [("efSearch", [16, 32, 64, 128, 256, 512])]
         if isinstance(index, IndexPQ) and index.polysemous:
             return [("ht", _ht_range(8 * index.M))]
         return []

@@ -10,10 +10,12 @@ is: float32 or bfloat16 vectors, SQ codes with their range, or PQ codes
 with their codebooks. The other index families come across from their
 trained state: IMI product centroids (and MultiIndexQuantizer codebooks),
 IVFPQR's codes with its refine state, ``Index2Layer``'s centroids, books,
-list ids and codes, the binary indexes' codes and centroid bits, and the
-LSH indexes' rotation, thresholds, period and centroids. With them both
-packages compute on identical state. The tensors go to the card unless
-``device`` says otherwise.
+list ids and codes, the binary indexes' codes and centroid bits, the
+LSH indexes' rotation, thresholds, period and centroids, and the HNSW
+graphs (levels, entry point, each level's links, the vectors or the
+storage codes and codec, the reconstruct-from-neighbours codebook). With
+them both packages compute on identical state. The tensors go to the card
+unless ``device`` says otherwise.
 """
 
 import numpy as np
@@ -21,8 +23,10 @@ import torch
 
 from auncel_tpu_torch.baselines.laet import MLP
 from auncel_tpu_torch.index.binary import BinaryFlatIndex, BinaryIVFIndex
+from auncel_tpu_torch.index.hnsw import HNSWIndex
+from auncel_tpu_torch.index.hnsw_recons import ReconstructFromNeighbors
 from auncel_tpu_torch.index.imi import MultiIndexQuantizer
-from auncel_tpu_torch.index.io import ivfpqr_from_codes
+from auncel_tpu_torch.index.io import bhnsw_from_state, ivfpqr_from_codes
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
 from auncel_tpu_torch.index.lsh import IndexLSH, IVFSpectralHashIndex
 from auncel_tpu_torch.index.twolayer import Index2Layer
@@ -201,4 +205,30 @@ def spectral_hash_from_numpy(state: dict, device="cuda"
     idx.is_trained = True
     if state.get("x") is not None and len(state["x"]):
         idx.add(state["x"], state["ids"])
+    return idx
+
+
+def hnsw_from_numpy(state: dict, device="cuda"):
+    """An HNSW index holding the JAX package's graph exactly. ``state`` has
+    the keys of its ``HNSWIndex.save`` file: kind (HNSWIndex, IndexHNSWSQ,
+    IndexHNSWPQ or IndexHNSW2Level), d, M, ef_search, metric, levels,
+    entry, max_level, ``table{l}`` and ``g2u{l}`` a level, and ``xb`` or
+    the variant's codes and codec (``sq_scale``, ``sq_vmin``,
+    ``sq_codes``; ``pq_books``, ``pq_codes``; ``tl_centroids``,
+    ``tl_books``, ``tl_list_ids``, ``tl_codes``); optionally ``recons``, a
+    dict of the ReconstructFromNeighbors state (k, nsq, codebook, codes,
+    and k_reorder if set). Kind ``BHNSW`` (the keys of its index file:
+    d, M, ef_search, entry, max_level, codes, levels and the tables) gives
+    a BinaryHNSWIndex."""
+    if str(state.get("kind")) == "BHNSW":
+        return bhnsw_from_state(state, state, device)
+    idx = HNSWIndex.from_state(state, device)
+    rec = state.get("recons")
+    if rec is not None:
+        r = ReconstructFromNeighbors(idx, k=int(rec["k"]), nsq=int(rec["nsq"]))
+        r.codebook = np.array(rec["codebook"], np.float32)
+        r.codes = np.array(rec["codes"], np.uint8)
+        if "k_reorder" in rec:
+            r.k_reorder = int(rec["k_reorder"])
+        idx.reconstruct_from_neighbors = r
     return idx

@@ -19,9 +19,12 @@ occurrence).
   candidates in ascending id order (``np.unique``); the batch ranks by
   (distance, id), the same order.
 
-The BHNSW family waits for the HNSW port (``ROADMAP.md`` queue 1 item
-7.3): ``BinaryIVFIndex(coarse_hnsw_m=...)`` and the factory's ``BHNSWn``
-and ``BIVFn_HNSWm`` raise ``NotImplementedError``.
+- ``BinaryHNSWIndex`` runs the float HNSW graph (``index/hnsw.py``) over
+  the unpacked {0, 1} planes: their squared L2 distance is the Hamming
+  distance, exactly. ``BinaryIVFIndex(coarse_hnsw_m=m)`` (the factory's
+  ``BIVFn_HNSWm``) ranks its probes through such a graph over the
+  centroid codes; a -1 the graph leaves probes cell 0, as in the JAX
+  package, and a cell probed twice is scanned once.
 """
 
 import re
@@ -31,14 +34,13 @@ import torch
 
 from auncel_tpu_torch.device import resolve
 from auncel_tpu_torch.index.base import Index
+from auncel_tpu_torch.index.hnsw import HNSWIndex
 from auncel_tpu_torch.index.scan import popcount8
 from auncel_tpu_torch.ops.kmeans import KmeansParams, kmeans
 from auncel_tpu_torch.ops.topk import init_topk, merge_topk, topk_scores
 from auncel_tpu_torch.types import Metric
 
 INT32_MAX = np.iinfo(np.int32).max
-HNSW_ITEM = ("the binary HNSW family waits for the HNSW port (ROADMAP.md "
-             "queue 1 item 7.3)")
 # corpus rows a Hamming product step; candidate slots a scan step
 DB_BLOCK = 65536
 CAND_BLOCK = 1 << 24
@@ -147,24 +149,23 @@ class BinaryFlatIndex(Index):
 class BinaryIVFIndex(Index):
     """IVF over Hamming space (reference IndexBinaryIVF): binary centroids
     from k-means on the unpacked bit planes, rounded by majority; the
-    nprobe nearest cells by exact Hamming rank; their members scanned
-    exactly."""
+    nprobe nearest cells by exact Hamming rank, or with ``coarse_hnsw_m``
+    through a binary HNSW over the centroid codes (the BIVF%d_HNSW%d cell,
+    AutoTune.cpp:980-985); their members scanned exactly."""
 
     position_keyed_ids = True
 
     def __init__(self, d: int, nlist: int, coarse_hnsw_m: int | None = None,
                  device="cuda"):
         assert d % 8 == 0
-        if coarse_hnsw_m is not None:
-            raise NotImplementedError(
-                f"BinaryIVFIndex(coarse_hnsw_m={coarse_hnsw_m}): {HNSW_ITEM}")
         self.d = d
         self.nlist = nlist
         self.metric = Metric.L2
         self.device = resolve(device)
         self.is_trained = False
         self.nprobe = 1
-        self.coarse_hnsw_m = None
+        self.coarse_hnsw_m = coarse_hnsw_m
+        self._coarse_g = None
         self.centroid_bits: np.ndarray | None = None  # {0,1} [nlist, d]
         self._codes = np.zeros((0, d // 8), np.uint8)
         self._dev = None
@@ -179,6 +180,7 @@ class BinaryIVFIndex(Index):
                      KmeansParams(niter=10), device=self.device)
         # majority vote (the reference trains float centroids, then rounds)
         self.centroid_bits = (res.centroids > 0.5).astype(np.uint8)
+        self._coarse_g = None
         self.is_trained = True
 
     def add(self, codes: np.ndarray, ids=None) -> None:
@@ -228,7 +230,7 @@ class BinaryIVFIndex(Index):
         dev = self.device
         nq = q_codes.shape[0]
         qb = bit_planes(q_codes, self.d, dev)
-        _, probes = hamming_topk(qb, cb, cpop, nprobe)
+        probes = self._coarse_probes(q_codes, qb, cb, cpop, nprobe)
         qc = torch.as_tensor(q_codes, device=dev)
         cap = members.shape[1]
         chunk = max(1, CAND_BLOCK // (nprobe * cap))
@@ -236,8 +238,9 @@ class BinaryIVFIndex(Index):
         out_v = np.empty((nq, k), np.int32)
         out_i = np.empty((nq, k), np.int64)
         for q0 in range(0, nq, chunk):
-            cand = members[probes[q0:q0 + chunk].long()].reshape(
-                -1, nprobe * cap)                              # [c, P*cap]
+            p = probes[q0:q0 + chunk]
+            cand = torch.where(p[:, :, None] >= 0, members[p.clamp_min(0)],
+                               -1).reshape(-1, nprobe * cap)   # [c, P*cap]
             ok = cand >= 0
             x = codes[cand.clamp_min(0)]                       # [c, P*cap, w]
             ham = popcount8(x ^ qc[q0:q0 + chunk, None, :]).sum(
@@ -255,9 +258,78 @@ class BinaryIVFIndex(Index):
             out_i[q0:q0 + chunk] = torch.where(pad, -1, key % n).cpu().numpy()
         return out_v, out_i
 
+    def _coarse_probes(self, q_codes: np.ndarray, qb, cb, cpop,
+                       nprobe: int) -> torch.Tensor:
+        """Each query's probed cells [nq, nprobe] (int64): the exact
+        Hamming rank, or with ``coarse_hnsw_m`` the binary HNSW over the
+        centroid codes at ef = max(4 nprobe, 32) (built at the first
+        call), its -1 pads as cell 0 and a repeated cell as -1 (the JAX
+        package scans the union of the probed cells)."""
+        if self.coarse_hnsw_m is None:
+            return hamming_topk(qb, cb, cpop, nprobe)[1].long()
+        if self._coarse_g is None:
+            g = BinaryHNSWIndex(self.d, M=self.coarse_hnsw_m,
+                                ef_search=max(4 * nprobe, 32),
+                                device=self.device)
+            g.add(pack_bits(self.centroid_bits))
+            g.build()
+            self._coarse_g = g
+        _, probes = self._coarse_g.search(q_codes, nprobe,
+                                          ef=max(4 * nprobe, 32))
+        p = torch.as_tensor(np.maximum(probes, 0), device=self.device)
+        s, order = torch.sort(p, dim=1, stable=True)
+        rep = torch.cat([torch.zeros_like(s[:, :1], dtype=torch.bool),
+                         s[:, 1:] == s[:, :-1]], 1)
+        return torch.where(torch.zeros_like(rep).scatter(1, order, rep), -1,
+                           p)
+
     def reset(self) -> None:
         self._codes = np.zeros((0, self.d // 8), np.uint8)
         self._dev = None
+        self._coarse_g = None
+
+
+class BinaryHNSWIndex(Index):
+    """Binary-code HNSW (reference IndexBinaryHNSW): the float HNSW graph
+    over the unpacked {0, 1} planes, whose squared L2 distance is the
+    Hamming distance (b1 XOR b2 popcount = ||b1 - b2||^2), so the graph
+    returns true Hamming distances."""
+
+    position_keyed_ids = True
+
+    def __init__(self, d: int, M: int = 16, ef_search: int = 32,
+                 device="cuda"):
+        assert d % 8 == 0, "binary dimension must be a multiple of 8 bits"
+        self.d = d                      # bits per code
+        self.metric = Metric.L2         # L2 over {0, 1} is Hamming
+        self.is_trained = True
+        self._g = HNSWIndex(d, M=M, ef_search=ef_search, device=device)
+
+    @property
+    def ntotal(self) -> int:
+        return self._g.ntotal
+
+    def train(self, codes) -> None:
+        pass
+
+    def add(self, codes: np.ndarray, ids=None) -> None:
+        assert ids is None, "BinaryHNSWIndex stores sequential ids"
+        self._g.add(unpack_bits(np.asarray(codes, np.uint8), self.d)
+                    .astype(np.float32))
+
+    def build(self) -> None:
+        self._g.build()
+
+    def search(self, q_codes: np.ndarray, k: int, ef: int | None = None):
+        """(Hamming distances [nq, k] int32, ids [nq, k] int64); pads carry
+        the int32 maximum and id -1."""
+        q = unpack_bits(np.asarray(q_codes, np.uint8),
+                        self.d).astype(np.float32)
+        vals, ids = self._g.search(q, k, ef=ef)
+        return int_distances(vals), ids
+
+    def reset(self) -> None:
+        self._g.reset()
 
 
 class IndexBinaryFromFloat(Index):
@@ -310,13 +382,15 @@ class IndexBinaryFromFloat(Index):
 def index_binary_factory(d: int, description: str,
                          device="cuda") -> Index:
     """The binary factory grammar (reference ``index_binary_factory``,
-    AutoTune.cpp:973-1008), ``d`` in bits: "BFlat" and "BIVF%d" are
-    built; "BHNSW%d" and "BIVF%d_HNSW%d" (or "_BHNSW%d") raise
-    ``NotImplementedError`` until the HNSW port."""
-    if re.fullmatch(r"BIVF(\d+)_B?HNSW(\d+)", description) or \
-            re.fullmatch(r"BHNSW(\d+)?", description):
-        raise NotImplementedError(
-            f"binary factory description {description!r}: {HNSW_ITEM}")
+    AutoTune.cpp:973-1008), ``d`` in bits: "BFlat", "BIVF%d", "BHNSW%d"
+    (M 32 by default) and "BIVF%d_HNSW%d" (or "BIVF%d_BHNSW%d")."""
+    m = re.fullmatch(r"BIVF(\d+)_B?HNSW(\d+)", description)
+    if m:
+        return BinaryIVFIndex(d, nlist=int(m.group(1)),
+                              coarse_hnsw_m=int(m.group(2)), device=device)
+    m = re.fullmatch(r"BHNSW(\d+)?", description)
+    if m:
+        return BinaryHNSWIndex(d, M=int(m.group(1) or 32), device=device)
     m = re.fullmatch(r"BIVF(\d+)", description)
     if m:
         return BinaryIVFIndex(d, nlist=int(m.group(1)), device=device)

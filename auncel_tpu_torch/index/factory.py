@@ -7,11 +7,14 @@ Served: the transform prefixes ``PCAn``, ``PCARn``, ``OPQm``, ``RR`` and
 ``IVFn,{Flat,SQ8,SQ4,SQ6,SQfp16,SQbf16,PQm}`` and the same cells over IMI
 product cells, ``IMI2xb,...`` (nlist = 4^b, ``index/imi.py``);
 ``IVFn,PQm+r`` (``IndexIVFPQR``), ``LSHn[r][t]`` (``IndexLSH``: r rotates,
-t trains thresholds) and ``IVFn,SHn`` (``IVFSpectralHashIndex``); and the
-``,RFlat`` and ``IDMap`` wrappers. The HNSW cells, which the JAX package
-builds, raise ``NotImplementedError`` naming their ``ROADMAP.md`` item;
-anything else raises as the JAX package does. Binary descriptions go
-through ``index/binary.py::index_binary_factory``.
+t trains thresholds) and ``IVFn,SHn`` (``IVFSpectralHashIndex``); the
+graph cells ``HNSWn[,Flat]``, ``HNSWn_SQ8``, ``HNSWn_PQm``,
+``HNSWn_l+PQm`` and ``HNSWn_2xb+PQm`` (``index/hnsw.py``: flat, SQ8, PQ
+and two-level storage, the last over k-means or IMI product cells), and
+``IVFn_HNSWm,...`` (the IVF cells with the lists of fixed-nprobe search
+ranked by an HNSW graph over the centroids); and the ``,RFlat`` and
+``IDMap`` wrappers. Anything else raises as the JAX package does. Binary
+descriptions go through ``index/binary.py::index_binary_factory``.
 """
 
 import re
@@ -19,6 +22,8 @@ import re
 from auncel_tpu_torch.index.base import Index
 from auncel_tpu_torch.index.flat import (FlatIndex, IndexRefineFlat,
                                          IndexScalarQuantizer)
+from auncel_tpu_torch.index.hnsw import (
+    HNSWIndex, IndexHNSW2Level, IndexHNSWPQ, IndexHNSWSQ)
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
 from auncel_tpu_torch.index.ivfpqr import IndexIVFPQR
 from auncel_tpu_torch.index.lsh import IndexLSH, IVFSpectralHashIndex
@@ -27,13 +32,8 @@ from auncel_tpu_torch.index.pq_index import IndexPQ
 from auncel_tpu_torch.index.transform import (
     IndexPreTransform, NormalizationTransform, OPQMatrix, PCAMatrix,
     RandomRotationMatrix)
+from auncel_tpu_torch.index.twolayer import IMICoarseQuantizer
 from auncel_tpu_torch.types import Metric
-
-# cells of the JAX package's grammar that the port does not build yet
-_NOT_PORTED = (
-    (r"HNSW.*", "HNSW indexes (index/hnsw.py)"),
-    (r"IVF\d+_HNSW\d+,\w+", "the HNSW coarse quantizer (index/hnsw.py)"),
-)
 
 _SQ_CELLS = {"SQ8": "sq8", "SQ4": "sq4", "SQ6": "sq6", "SQfp16": "bf16",
              "SQbf16": "bf16"}
@@ -75,13 +75,33 @@ def index_factory(d: int, description: str, metric: Metric = Metric.L2,
         parts = parts[:-1]
 
     desc = ",".join(parts)
-    for pattern, what in _NOT_PORTED:
-        if re.fullmatch(pattern, desc):
-            raise NotImplementedError(
-                f"factory description {description!r}: {what} is not "
-                f"ported yet (ROADMAP.md queue 1 item 7.3)")
     if desc == "Flat":
         index: Index = FlatIndex(cur_d, metric, device=device)
+    elif m := re.fullmatch(r"HNSW(\d+)?(,Flat)?", desc):
+        # the standalone graph (AutoTune.cpp:888-905)
+        index = HNSWIndex(cur_d, M=int(m.group(1) or 32), metric=metric,
+                          device=device)
+    elif m := re.fullmatch(r"HNSW(\d+)_SQ8", desc):
+        # graph over SQ8 codes (AutoTune.cpp:908-910; SQ8 only there)
+        index = IndexHNSWSQ(cur_d, M=int(m.group(1)), metric=metric,
+                            device=device)
+    elif m := re.fullmatch(r"HNSW(\d+)_PQ(\d+)", desc):
+        # graph over PQ codes (AutoTune.cpp:902-904)
+        index = IndexHNSWPQ(cur_d, pq_m=int(m.group(2)), M=int(m.group(1)),
+                            metric=metric, device=device)
+    elif m := re.fullmatch(r"HNSW(\d+)_(\d+)\+PQ(\d+)", desc):
+        # graph over two-level codes, k-means lists (AutoTune.cpp:886-891)
+        index = IndexHNSW2Level(cur_d, nlist=int(m.group(2)),
+                                pq_m=int(m.group(3)), M=int(m.group(1)),
+                                metric=metric, device=device)
+    elif m := re.fullmatch(r"HNSW(\d+)_2x(\d+)\+PQ(\d+)", desc):
+        # graph over two-level codes, IMI product cells
+        # (AutoTune.cpp:893-899)
+        nbit = int(m.group(2))
+        index = IndexHNSW2Level(
+            cur_d, nlist=(1 << nbit) ** 2, pq_m=int(m.group(3)),
+            M=int(m.group(1)), metric=metric, device=device,
+            quantizer=IMICoarseQuantizer(cur_d, nbit, metric, device=device))
     elif re.fullmatch(r"PQ(\d+)", desc):
         index = IndexPQ(cur_d, M=int(desc[2:]), metric=metric, device=device)
     elif desc in _SQ_CELLS:
@@ -104,18 +124,19 @@ def index_factory(d: int, description: str, metric: Metric = Metric.L2,
                             M_refine=int(m.group(3)), metric=metric,
                             device=device)
     else:
-        coarse = "kmeans"
+        coarse, hnsw_m = "kmeans", None
         m = re.fullmatch(r"IMI2x(\d+),(\w+)", desc)
         if m:
             # inverted multi-index cells (AutoTune.cpp:807): (2^b)^2
             nlist, cell, coarse = (1 << int(m.group(1))) ** 2, m.group(2), \
                 "imi"
         else:
-            m = re.fullmatch(r"IVF(\d+),(\w+)", desc)
+            m = re.fullmatch(r"IVF(\d+)(?:_HNSW(\d+))?,(\w+)", desc)
             if not m:
                 raise NotImplementedError(
                     f"factory description {description!r}")
-            nlist, cell = int(m.group(1)), m.group(2)
+            nlist, cell = int(m.group(1)), m.group(3)
+            hnsw_m = int(m.group(2)) if m.group(2) else None
         if cell == "Flat":
             storage = "f32"
         elif cell in _SQ_CELLS:
@@ -131,6 +152,9 @@ def index_factory(d: int, description: str, metric: Metric = Metric.L2,
                 f"grammar: AutoTune.cpp:741-960)")
         index = IVFFlatIndex(cur_d, nlist, metric, device=device,
                              storage=storage, coarse=coarse)
+        # IVF%d_HNSW%d (AutoTune.cpp:807-820): the lists of fixed-nprobe
+        # search ranked through an HNSW graph over the centroids
+        index.coarse_hnsw_m = hnsw_m
 
     if want_rflat:
         index = IndexRefineFlat(index)

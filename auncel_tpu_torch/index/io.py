@@ -1,5 +1,4 @@
-"""Index files (port of ``auncel_tpu/index/io.py`` but its binary HNSW
-kind).
+"""Index files (port of ``auncel_tpu/index/io.py``).
 
 The layout is the JAX package's: one ``.npz`` holding a JSON ``header``
 (version, kind, d, metric, and for the IVF kinds nlist, trained, ntotal,
@@ -24,9 +23,11 @@ the centroids, the first-stage codes ``db`` with ``vec_ids``,
 ``refine_codes``, ``refine_sorted_ids``, ``refine_pos``; it loads as
 residual PQ, and a loaded index refuses ``add``, since the raw vectors
 are gone), ``2Layer`` (``centroids``, ``books``, ``list_ids``,
-``codes``), ``BFlat`` (the packed ``codes``) and ``BIVF`` (``codes``,
-``centroid_bits``, nprobe). The ``BHNSW`` kind raises
-``NotImplementedError`` until the HNSW port.
+``codes``), ``BFlat`` (the packed ``codes``), ``BIVF`` (``codes``,
+``centroid_bits``, nprobe, coarse_hnsw_m) and ``BHNSW`` (header M,
+ef_search, entry, max_level; payload the packed ``codes``, ``levels`` and
+each level's ``table{l}`` and ``g2u{l}``). The float HNSW family has its
+own ``.npz`` (``HNSWIndex.save``/``load``, ``index/hnsw.py``).
 
 The on-disk directory (``save_index_ondisk``; served list by list by
 ``index/ondisk.py::OnDiskIVFIndex``, or loaded whole by
@@ -45,7 +46,8 @@ import numpy as np
 
 import torch
 
-from auncel_tpu_torch.index.binary import BinaryFlatIndex, BinaryIVFIndex
+from auncel_tpu_torch.index.binary import (
+    BinaryFlatIndex, BinaryHNSWIndex, BinaryIVFIndex, pack_bits, unpack_bits)
 from auncel_tpu_torch.index.flat import FlatIndex
 from auncel_tpu_torch.index.ivf import (IVFFlatDedupIndex, IVFFlatIndex,
                                         _decoded_norms, decoded_db)
@@ -58,16 +60,10 @@ from auncel_tpu_torch.types import Metric
 
 _FORMAT_VERSION = 1
 
-# kinds the JAX package writes that the port does not load yet, and the
-# ROADMAP.md item that ports each
-_NOT_PORTED = {
-    "BHNSW": "queue 1 item 7.3 (binary.py's BinaryHNSWIndex)",
-}
-
 
 def save_index(index, path: str) -> None:
     """Write a flat, IVF-Flat (or dedup, or IMI), IVFPQR, two-layer or
-    binary (flat, IVF) index, trained or not, empty or not."""
+    binary (flat, IVF, HNSW) index, trained or not, empty or not."""
     if isinstance(index, FlatIndex):
         header = dict(version=_FORMAT_VERSION, kind="Flat", d=index.d,
                       metric=index.metric.value)
@@ -103,11 +99,14 @@ def save_index(index, path: str) -> None:
             payload["centroid_bits"] = index.centroid_bits
         np.savez(path, **payload)
         return
+    if isinstance(index, BinaryHNSWIndex):
+        _save_bhnsw(index, path)
+        return
     if not isinstance(index, IVFFlatIndex):
         raise NotImplementedError(
             f"cannot serialize {type(index).__name__}: the port writes the "
-            "Flat, IVFFlat, IVFFlatDedup, IVFPQR, 2Layer, BFlat and BIVF "
-            "kinds (the HNSW family waits, ROADMAP.md queue 1 item 7.3)")
+            "Flat, IVFFlat, IVFFlatDedup, IVFPQR, 2Layer, BFlat, BIVF and "
+            "BHNSW kinds (the float HNSW family: HNSWIndex.save)")
     dedup = isinstance(index, IVFFlatDedupIndex)
     storage = "f32" if index.storage.startswith("pq") else index.storage
     header = dict(version=_FORMAT_VERSION,
@@ -141,10 +140,6 @@ def load_index(path: str, device="cuda"):
                             device=device)
             idx.add(z["xb"])
             return idx
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"index kind {kind!r} is not ported: ROADMAP.md "
-                f"{_NOT_PORTED[kind]}")
         if kind in _LOADERS:
             return _LOADERS[kind](z, header, device)
         if kind not in ("IVFFlat", "IVFFlatDedup"):
@@ -176,6 +171,50 @@ def load_index(path: str, device="cuda"):
             idx._dup = {int(k): list(v)
                         for k, v in header.get("dup", {}).items()}
         return idx
+
+
+def _save_bhnsw(index: BinaryHNSWIndex, path: str) -> None:
+    """The packed codes and the graph's tables (the reference's
+    write_index_binary keeps the HNSW structure too); a graph not built
+    yet is built first."""
+    g = index._g
+    if g.ntotal and not g._built:
+        g.build()
+    header = dict(version=_FORMAT_VERSION, kind="BHNSW", d=index.d,
+                  metric=index.metric.value, M=g.M, ef_search=g.ef_search,
+                  entry=int(g.entry_point), max_level=int(g.max_level))
+    codes = pack_bits(g._xb > 0.5) if g.ntotal else \
+        np.zeros((0, index.d // 8), np.uint8)
+    payload = dict(header=json.dumps(header), codes=codes,
+                   levels=(g.levels if g.levels is not None
+                           else np.zeros((0,), np.int32)))
+    for l, t in enumerate(g.nb_tables):
+        payload[f"table{l}"] = t
+    for l, gg in enumerate(g.g2u):
+        payload[f"g2u{l}"] = gg
+    np.savez(path, **payload)
+
+
+def bhnsw_from_state(z, header: dict, device="cuda") -> BinaryHNSWIndex:
+    """A BinaryHNSWIndex on ``device`` from a ``BHNSW`` file's header
+    (d, M, ef_search, entry, max_level) and payload (codes, levels,
+    table{l}, g2u{l}): the graph as it was built."""
+    idx = BinaryHNSWIndex(header["d"], M=header["M"],
+                          ef_search=header["ef_search"], device=device)
+    g = idx._g
+    codes = np.asarray(z["codes"], np.uint8)
+    if codes.shape[0]:
+        g._xb = unpack_bits(codes, header["d"]).astype(np.float32)
+        g.levels = np.asarray(z["levels"])
+        g.entry_point = int(header["entry"])
+        g.max_level = int(header["max_level"])
+        g.nb_tables = [np.array(z[f"table{l}"], np.int32)
+                       for l in range(g.max_level + 1)]
+        g.g2u = [np.array(z[f"g2u{l}"], np.int32)
+                 for l in range(g.max_level + 1)]
+        g._push_dev()
+        g._built = True
+    return idx
 
 
 def _save_ivfpqr(index: IndexIVFPQR, path: str) -> None:
@@ -270,6 +309,7 @@ _LOADERS = {
     "2Layer": _load_2layer,
     "BFlat": _load_bflat,
     "BIVF": _load_bivf,
+    "BHNSW": bhnsw_from_state,
 }
 
 

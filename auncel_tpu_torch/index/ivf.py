@@ -22,8 +22,12 @@ once. ``coarse="imi"`` trains the IMI product cells
 (``index/imi.py``: nlist = K^2 cells, the product centroids materialised),
 which every layout, engine and search route then serves as ordinary
 centroids; the inter-centroid matrix waits above ``INTERDIS_EAGER_MAX``
-lists until ``ensure_interdis``. Not ported yet: the HNSW coarse
-quantizer (``NotImplementedError``).
+lists until ``ensure_interdis``. ``coarse_hnsw_m`` (the factory's
+``IVFn_HNSWm`` cells) ranks the lists of fixed-nprobe search through an
+HNSW graph over the centroids (``index/hnsw.py``, built at the first such
+search) instead of the exact rank, then scans the padded lists (K2), as
+the JAX package's ``_search_hnsw_coarse`` does; the error-bounded engines
+keep the exact rank.
 """
 
 import re
@@ -38,9 +42,10 @@ from auncel_tpu_torch.index.aux import ivf_stats
 from auncel_tpu_torch.index.base import Index
 from auncel_tpu_torch.index.flat import (
     sq_code_width, sq_encode, sq_pack, sq_train_range)
+from auncel_tpu_torch.index.hnsw import HNSWIndex
 from auncel_tpu_torch.index.scan import (
     IVFArrays, coarse_rank, ivf_full_scan, ivf_search_fixed,
-    ivf_search_fixed_ht)
+    ivf_search_fixed_ht, scan_probe_range)
 from auncel_tpu_torch.index.multirow import (
     MultiRowArrays, build_multirow, multirow_dense_fixed,
     multirow_search_fixed)
@@ -50,7 +55,7 @@ from auncel_tpu_torch.ops.kmeans import KmeansParams, kmeans
 from auncel_tpu_torch.ops.pq import PQCodebooks, encode_pq, train_pq
 from auncel_tpu_torch.ops.polysemous import reorder_codebook
 from auncel_tpu_torch.ops.sq import sq_decode_dev, sq_kind
-from auncel_tpu_torch.ops.topk import topk_scores
+from auncel_tpu_torch.ops.topk import init_topk, topk_scores
 
 # scalar-quantized storage codecs (reference ScalarQuantizer QT_* families,
 # IndexScalarQuantizer.h:34-41; "u" = one range for all dims, "d" = direct)
@@ -188,6 +193,11 @@ class IVFFlatIndex(Index):
         self._multirow: MultiRowArrays | None = None
         self._multirow_row_cap: int | None = None
         self._ntotal = 0
+        # the IVF%d_HNSW%d factory cell: M of an HNSW graph over the
+        # centroids that ranks the lists of fixed-nprobe search
+        # (AutoTune.cpp:807-820); None = the exact rank
+        self.coarse_hnsw_m: int | None = None
+        self._hnswq: HNSWIndex | None = None
 
     @classmethod
     def from_state(cls, centroids: np.ndarray, arrays: IVFArrays,
@@ -250,6 +260,7 @@ class IVFFlatIndex(Index):
         self.is_trained = True
         self._arrays = None
         self._multirow = None
+        self._hnswq = None
 
     def ensure_interdis(self) -> np.ndarray:
         if self.interdis is None:
@@ -501,7 +512,9 @@ class IVFFlatIndex(Index):
         mr = self.multirow
         max_codes = int(self.max_codes)
         ndis = B * nprobe * self.arrays.cap
-        if self.polysemous_ht and self.arrays.pq_codebooks is not None:
+        if self.coarse_hnsw_m:
+            vals, ids = self._search_hnsw_coarse(qt, k, nprobe)
+        elif self.polysemous_ht and self.arrays.pq_codebooks is not None:
             vals, ids = ivf_search_fixed_ht(self.arrays, qt, k, nprobe,
                                             int(self.polysemous_ht),
                                             self.metric)
@@ -528,6 +541,41 @@ class IVFFlatIndex(Index):
         ivf_stats.ndis += ndis
         ivf_stats.search_time_ms += (time.perf_counter() - t0) * 1e3
         return out
+
+    def hnsw_quantizer(self) -> HNSWIndex:
+        """The HNSW graph over the centroids (the IVF%d_HNSW%d coarse
+        quantizer), built at the first call after training."""
+        if self._hnswq is None:
+            hq = HNSWIndex(self.d, M=self.coarse_hnsw_m, metric=self.metric,
+                           device=self.device)
+            hq.add(self.centroids)
+            hq.build()
+            self._hnswq = hq
+        return self._hnswq
+
+    def hnsw_probes(self, q: np.ndarray, nprobe: int) -> np.ndarray:
+        """Each query's nprobe lists as the centroid graph ranks them,
+        explored at ef = max(4 nprobe, 64) (the coarse rank gates
+        everything downstream, and the graph holds nlist nodes); -1 past
+        the lists the graph found."""
+        _, cids = self.hnsw_quantizer().search(np.asarray(q, np.float32),
+                                               nprobe,
+                                               ef=max(4 * nprobe, 64))
+        return cids
+
+    def _search_hnsw_coarse(self, q: torch.Tensor, k: int, nprobe: int):
+        """Fixed-nprobe search over the graph-ranked lists (the reference's
+        quantizer->search through IndexHNSW): the padded lists' scan, each
+        query limited to the lists the graph found."""
+        cids = self.hnsw_probes(q.cpu().numpy(), nprobe)
+        dev = q.device
+        vals, ids = init_topk((q.shape[0],), k, self.metric, dev)
+        limit = torch.as_tensor((cids >= 0).sum(1).astype(np.int32),
+                                device=dev)
+        probe = torch.as_tensor(np.maximum(cids, 0).astype(np.int32),
+                                device=dev)
+        return scan_probe_range(self.arrays, q, sqnorms(q), probe, vals, ids,
+                                limit, 0, nprobe, self.metric)
 
     def exact_search(self, q: np.ndarray, k: int, batch: int = 1024):
         """Full scan (nprobe = nlist) whose distance values match the probe

@@ -2,6 +2,8 @@
 ``auncel_tpu/ops/kmeans.py``): subsample to ``k * max_points_per_centroid``,
 k-means++ seeding by Gumbel-max D^2 sampling, ``niter`` rounds of
 {assign -> mean update -> empty/starved-cluster split}, ``nredo`` restarts.
+The mean update sums in a fixed order (``segment_sum``), so a training
+on the card repeats bit for bit.
 
 Random draws come from an explicit ``torch.Generator`` seeded from
 ``params.seed``; they differ from ``jax.random``'s, so the same seed gives
@@ -50,6 +52,19 @@ def _assign(x: torch.Tensor, centroids: torch.Tensor, c_sq: torch.Tensor,
     return torch.cat(a), torch.cat(e)
 
 
+def segment_sum(x: torch.Tensor, a: torch.Tensor,
+                sizes: torch.Tensor) -> torch.Tensor:
+    """The rows of x [n, d] summed by segment id a [n] (``sizes``: the
+    bincount of a), each segment in ascending row order: a stable sort by
+    segment, then one sequential sum a (segment, column). The order is
+    fixed, so the card repeats it bit for bit (``index_add_`` adds with
+    float atomics there), and on the CPU it is ``index_add_``'s order,
+    the JAX package's ``segment_sum``'s."""
+    order = torch.sort(a, stable=True).indices
+    return torch.segment_reduce(x[order], "sum", lengths=sizes, axis=0,
+                                unsafe=True)
+
+
 def _update(x: torch.Tensor, assign: torch.Tensor, k: int, spherical: bool,
             starve_threshold: float = 0.0):
     """Mean update + deterministic empty/starved-cluster split: the i-th
@@ -59,11 +74,9 @@ def _update(x: torch.Tensor, assign: torch.Tensor, k: int, spherical: bool,
     d = x.shape[1]
     dev = x.device
     a = assign.long()
-    counts = torch.zeros(k, dtype=torch.float32, device=dev).index_add_(
-        0, a, torch.ones_like(a, dtype=torch.float32))
-    sums = torch.zeros((k, d), dtype=torch.float32, device=dev).index_add_(
-        0, a, x)
-    centroids = sums / counts.clamp_min(1.0)[:, None]
+    sizes = torch.bincount(a, minlength=k)
+    counts = sizes.to(torch.float32)
+    centroids = segment_sum(x, a, sizes) / counts.clamp_min(1.0)[:, None]
 
     eps = 1.0 / 1024.0
     thr = torch.tensor(starve_threshold, dtype=torch.float32, device=dev)

@@ -54,7 +54,14 @@ window whose stragglers take phase B, and time_search at batch 1); then
 each
 kernel against its plain version on the index's own arrays, K2 at the
 shapes the main path gives it (the window's waves, a training chunk, batch
-1 and one list probed by every query); then, on the same corpus,
+1 and one list probed by every query);
+  [ivf hnsw]       the same index as "IVF1024_HNSW32,Flat": an HNSW graph
+                   over its 1024 centroids ranks the lists of fixed-
+                   nprobe search (nprobe 16, 32), K2 scans them (it must
+                   launch), recall@10 against the exact rank's and the
+                   lists' overlap with coarse_rank's reported, K2 at the
+                   largest call against its plain version;
+then, on the same corpus,
   [imi]            "IMI2x7,Flat": 16384 IMI product cells trained on 400k
                    vectors (their size spread and both layouts' bytes
                    printed before the index is packed), served on the
@@ -74,6 +81,23 @@ shapes the main path gives it (the window's waves, a training chunk, batch
                    "IVF1024,SH64" at nprobe 16, each equal to the same
                    index on the CPU on 100 queries; times and recall@10
                    reported;
+  [bhnsw]          BinaryHNSWIndex (M 16) over 20k of those codes and
+                   "BIVF1024_HNSW16" over all of them, recall@10 against
+                   BFlat, each equal to the CPU on 100 queries;
+then the HNSW cells of the JAX package's tests/test_hnsw.py:
+  [hnsw]           HNSWIndex on 20k x 32 (64 clusters, M 16,
+                   efConstruction 40): the build (insert, repair,
+                   refine), recall@10 against Flat at ef 10, 32, 64, 128
+                   (>= 0.90 at 64 and >= 0.95 at 128 or the run fails),
+                   the 64 queries as a batch and at batch 1 (p50, p99,
+                   device time), a second card build equal, and a CPU
+                   search of the card's graph with equal ids;
+  [hnsw sq8],      "HNSW16_SQ8" and "HNSW16_PQ8" on the same cell (>= 0.85
+  [hnsw pq8]       against Flat and >= 0.80 against the decoded corpus at
+                   ef 64), their bytes on the card;
+  [hnsw 200k]      HNSWIndex on 200k x 128 (600 clusters, M 16,
+                   efConstruction 80, two refinement passes): the build
+                   and recall@10 at ef 64 (>= 0.95 or the run fails);
 then
   [sq8 10M]        the JAX package's headline configuration, synthDeep10M
                    (10M x 96) with IVF1024 + SQ8 storage, built on the
@@ -1995,14 +2019,14 @@ def twolayer_phase(c: dict, card: str) -> dict:
 N_BINARY_CPU = 100
 
 
-def binary_phase(c: dict, card: str) -> None:
+def binary_phase(c: dict, card: str) -> dict:
     """[binary]: the 1M corpus hashed by "LSH128r"; its codes in BFlat and
     "BIVF1024" (nprobe 16 and 1024, which must equal BFlat's ids and
     distances), and "IVF1024,SH64" at nprobe 16; each checked on 100
     queries against the same index on the CPU (BIVF at nprobe 1024
     through BFlat: it equals BFlat on the card, and BFlat the CPU);
     times and recall@10 by ids against the float ground truth
-    reported."""
+    reported. Returns the codes, the query codes and the BIVF index."""
     from auncel_tpu_torch import convert, index_factory
     from auncel_tpu_torch.index.binary import index_binary_factory, pack_bits
     xb, xq, gt_I = c["xb"], c["xq"], c["gt_I"]
@@ -2062,6 +2086,317 @@ def binary_phase(c: dict, card: str) -> None:
     log("[binary stages] " + " ".join(f"{k}={v:.2f}s"
                                       for k, v in times.items())
         + f"; BIVF at every list equals BFlat [{card}]")
+    return {"codes": codes, "qc": qc, "bivf": bivf, "bflat": bflat}
+
+
+# The JAX package's HNSW cells (tests/test_hnsw.py): 20k x 32 with 64
+# clusters (seed 5, 64 queries; M 16, efConstruction 40; recall@10 against
+# Flat >= 0.90 at ef 64 and >= 0.95 at ef 128; SQ8 >= 0.85 and PQ8 >= 0.80
+# at ef 64) and 200k x 128 with 600 clusters (seed 3, 128 queries; M 16,
+# efConstruction 80, two refinement passes; >= 0.95 at ef 64).
+HNSW_CELL = dict(nb=20_000, nq=64, d=32, n_clusters=64, seed=5)
+HNSW_SCALE_CELL = dict(nb=200_000, nq=128, d=128, n_clusters=600, seed=3)
+HNSW_EFS = (10, 32, 64, 128)
+HNSW_LIMITS = {64: 0.90, 128: 0.95}
+HNSW_B1_REPS = 3          # batch-1 passes over the held-out queries
+N_HNSW_CPU = 100
+
+
+def hnsw_graph(idx) -> list:
+    """An HNSW index's graph: levels, entry point, each level's links and
+    row map."""
+    return ([idx.levels, np.asarray([idx.entry_point])] + list(idx.nb_tables)
+            + list(idx.g2u))
+
+
+def hnsw_build(make, xb, train=None) -> tuple:
+    """(index, build seconds): ``make()`` trained on ``train`` (or the
+    corpus), the corpus added, the graph built, all on the card."""
+    idx = make()
+    t0 = time.perf_counter()
+    idx.train(xb if train is None else train)
+    idx.add(xb)
+    idx.build()
+    torch.cuda.synchronize()
+    return idx, time.perf_counter() - t0
+
+
+def hnsw_recalls(idx, xq, gt_I, efs=HNSW_EFS) -> dict:
+    out = {}
+    for ef in efs:
+        _, i = idx.search(xq, K, ef=ef)
+        out[ef] = id_recall(i, gt_I)
+    return out
+
+
+def hnsw_search_times(idx, xq, ef: int, reps: int = 1) -> tuple:
+    """(median ms of the held-out queries as one batch over 5 calls,
+    batch-1 latencies in ms over ``reps`` passes)."""
+    idx.search(xq, K, ef=ef)                                   # warm
+    batch = [synced(lambda: idx.search(xq, K, ef=ef))[1] * 1e3
+             for _ in range(5)]
+    lat = [synced(lambda: idx.search(xq[i:i + 1], K, ef=ef))[1] * 1e3
+           for _ in range(reps) for i in range(xq.shape[0])]
+    return float(np.median(batch)), np.asarray(lat)
+
+
+def hnsw_phase(card: str) -> dict:
+    """[hnsw], [hnsw sq8], [hnsw pq8]: the JAX test's 20k cell on the card
+    (HNSWIndex, "HNSW16_SQ8", "HNSW16_PQ8"): the build time (insert,
+    repair, refine), recall@10 against Flat at ef 10, 32, 64 and 128
+    (the JAX limits checked), the held-out batch and batch-1 p50/p99; a
+    second card build must give the same graph, and a CPU search of the
+    card's graph the same ids. The compressed cells report their bytes on
+    the card; PQ is held against exact search over its decoded corpus, as
+    the JAX test holds it."""
+    from auncel_tpu_torch import FlatIndex, HNSWIndex, convert, index_factory
+    from auncel_tpu_torch.data import make_clustered_dataset
+    ds = make_clustered_dataset(**HNSW_CELL)
+    xb, xq, d = ds.xb, ds.xq, HNSW_CELL["d"]
+    flat = FlatIndex(d)
+    flat.add(xb)
+    _, gt_I = flat.search(xq, K)
+    out = {}
+
+    def make():
+        return HNSWIndex(d, M=16, ef_construction=40, ef_search=64)
+    idx, t_build = hnsw_build(make, xb)
+    rec = hnsw_recalls(idx, xq, gt_I)
+    for ef, limit in HNSW_LIMITS.items():
+        check(rec[ef] >= limit, f"[hnsw] recall@{K} {rec[ef]:.4f} at ef "
+              f"{ef} below {limit}")
+    t_batch, lat = hnsw_search_times(idx, xq, 64, HNSW_B1_REPS)
+    dev_batch = device_ms(lambda: idx.search(xq, K, ef=64), 3)
+    dev_b1 = device_ms(lambda: idx.search(xq[:1], K, ef=64), 5)
+    again, t_again = hnsw_build(make, xb)
+    same = all(np.array_equal(a, b) for a, b in
+               zip(hnsw_graph(idx), hnsw_graph(again)))
+    check(same, "[hnsw] two card builds gave different graphs")
+    del again
+    cpu = convert.hnsw_from_numpy(idx.state(), device="cpu")
+    q = xq[:N_HNSW_CPU]
+    cv, ci = cpu.search(q, K, ef=64)
+    gv, gi = idx.search(q, K, ef=64)
+    check(np.array_equal(ci, gi), "[hnsw] card ids differ from the CPU's")
+    check(np.allclose(cv, gv, rtol=1e-5, atol=1e-5),
+          "[hnsw] card values beyond 1e-5 of the CPU's")
+    bt = idx.build_times
+    log(f"[hnsw] {HNSW_CELL['nb']}x{d} ({HNSW_CELL['n_clusters']} clusters,"
+        f" seed {HNSW_CELL['seed']}), M 16, efConstruction 40: build "
+        f"{t_build:.2f} s (insert {bt['insert']:.2f} s, repair "
+        f"{bt['repair']:.2f} s, refine {bt['refine']:.2f} s; again "
+        f"{t_again:.2f} s, the same graph: {same}); levels "
+        f"{idx.max_level + 1}; recall@{K} against Flat "
+        + ", ".join(f"ef {ef} {r:.4f}" for ef, r in rec.items())
+        + f"; {xq.shape[0]} queries at ef 64 {t_batch:.2f} ms (device time "
+        f"{'not measured' if dev_batch is None else f'{dev_batch:.2f} ms'});"
+        f" batch 1 p50 {np.percentile(lat, 50):.2f} ms p99 "
+        f"{np.percentile(lat, 99):.2f} ms ({lat.size} searches; device time "
+        f"{'not measured' if dev_b1 is None else f'{dev_b1:.2f} ms'} a "
+        f"search); ids equal to the CPU's on {len(q)} queries [{card}]")
+    out["hnsw"] = {"build_s": t_build, "recall": rec, "batch_ms": t_batch}
+    del idx, cpu
+    for cell, name, limit in (("HNSW16_SQ8", "hnsw sq8", 0.85),
+                              ("HNSW16_PQ8", "hnsw pq8", 0.80)):
+        idx, t_build = hnsw_build(lambda: index_factory(d, cell), xb)
+        if name == "hnsw pq8":
+            dec = FlatIndex(d)
+            dec.add(idx._xb)                       # the decoded corpus
+            ref_I = dec.search(xq, K)[1]
+        else:
+            ref_I = gt_I
+        rec = hnsw_recalls(idx, xq, ref_I)
+        check(rec[64] >= limit, f"[{name}] recall@{K} {rec[64]:.4f} at ef "
+              f"64 below {limit}")
+        t_batch, lat = hnsw_search_times(idx, xq, 64)
+        store = idx._dev[0]
+        check(store.dtype == torch.uint8 and store.is_cuda,
+              f"[{name}] storage on the card is not uint8 codes")
+        nbytes = store.numel() + sum((t.numel() + g.numel()) * 8
+                                     for t, g in idx._dev[1])
+        cpu = convert.hnsw_from_numpy(idx.state(), device="cpu")
+        same = np.array_equal(cpu.search(q, K, ef=64)[1],
+                              idx.search(q, K, ef=64)[1])
+        check(same, f"[{name}] card ids differ from the CPU's")
+        bt = idx.build_times
+        log(f"[{name}] {cell} on the same cell: codes {store.numel()} B on "
+            f"the card ({store.shape[1]} B a vector, float32 "
+            f"{HNSW_CELL['nb'] * d * 4} B), with the links and row maps {nbytes} "
+            f"B; "
+            f"build {t_build:.2f} s (insert {bt['insert']:.2f} s, repair "
+            f"{bt['repair']:.2f} s, refine {bt['refine']:.2f} s); recall@{K} "
+            f"against {'its decoded corpus' if name == 'hnsw pq8' else 'Flat'}"
+            f" " + ", ".join(f"ef {ef} {r:.4f}" for ef, r in rec.items())
+            + f"; {xq.shape[0]} queries at ef 64 {t_batch:.2f} ms; batch 1 "
+            f"p50 {np.percentile(lat, 50):.2f} ms p99 "
+            f"{np.percentile(lat, 99):.2f} ms; ids equal to the CPU's on "
+            f"{len(q)} queries [{card}]")
+        out[name] = {"build_s": t_build, "recall": rec}
+        del idx, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def hnsw_scale_phase(card: str) -> dict:
+    """[hnsw 200k]: the JAX test's scale cell on the card (200k x 128, 600
+    clusters, M 16, efConstruction 80, two refinement passes): the build
+    time (insert, repair, refine) and recall@10 against Flat at ef 64
+    (>= 0.95, the JAX test's limit, or the run fails), and the held-out
+    batch at ef 64."""
+    from auncel_tpu_torch import FlatIndex, HNSWIndex
+    from auncel_tpu_torch.data import make_clustered_dataset
+    t0 = time.perf_counter()
+    ds = make_clustered_dataset(**HNSW_SCALE_CELL)
+    xb, xq, d = ds.xb, ds.xq, HNSW_SCALE_CELL["d"]
+    t_data = time.perf_counter() - t0
+    flat = FlatIndex(d)
+    flat.add(xb)
+    _, gt_I = flat.search(xq, K)
+    del flat
+    idx, t_build = hnsw_build(lambda: HNSWIndex(
+        d, M=16, ef_construction=80, refine_passes=2), xb)
+    rec = hnsw_recalls(idx, xq, gt_I, (32, 64, 128))
+    check(rec[64] >= 0.95, f"[hnsw 200k] recall@{K} {rec[64]:.4f} at ef 64 "
+          "below 0.95")
+    t_batch, lat = hnsw_search_times(idx, xq, 64)
+    bt = idx.build_times
+    log(f"[hnsw 200k] {HNSW_SCALE_CELL['nb']}x{d} "
+        f"({HNSW_SCALE_CELL['n_clusters']} clusters, seed "
+        f"{HNSW_SCALE_CELL['seed']}; data {t_data:.1f} s on the host), M 16,"
+        f" efConstruction 80, refine x2: build {t_build:.2f} s (insert "
+        f"{bt['insert']:.2f} s, repair {bt['repair']:.2f} s, refine "
+        f"{bt['refine']:.2f} s); levels {idx.max_level + 1}; recall@{K} "
+        "against Flat " + ", ".join(f"ef {ef} {r:.4f}"
+                                    for ef, r in rec.items())
+        + f"; {xq.shape[0]} queries at ef 64 {t_batch:.2f} ms; batch 1 p50 "
+        f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} "
+        f"ms [{card}]")
+    del idx
+    torch.cuda.empty_cache()
+    return {"build_s": t_build, "recall": rec}
+
+
+IVF_HNSW_M = 32
+IVF_HNSW_NPROBES = (16, 32)
+
+
+def ivf_hnsw_phase(c: dict, card: str) -> dict:
+    """[ivf hnsw]: "IVF1024_HNSW32,Flat" on the 1M index: its 1024
+    centroids in an HNSW graph (M 32) that ranks the lists of fixed-nprobe
+    search, then K2 over the padded lists (the JAX package's
+    _search_hnsw_coarse): recall@10 by ids at nprobe 16 and 32, the
+    overlap of the graph's probe lists with coarse_rank's, K2 launched or
+    the run fails; K2 at the largest call against its plain version
+    (equal ids, values within 1e-5 of q_sq + db_sq). Returns the launches
+    and K2's numbers."""
+    idx, xq, gt_I = c["idx"], c["xq"], c["gt_I"]
+    q = xq[held_out()]
+    idx.coarse_hnsw_m = IVF_HNSW_M
+    try:
+        g, t_graph = synced(idx.hnsw_quantizer)
+        _, exact = idx.coarse_rank_np(q)
+        reset_counts()
+        runs = {}
+        for nprobe in IVF_HNSW_NPROBES:
+            idx.search(q[:8], K, nprobe=nprobe)                      # warm
+            (v, i), t = synced(lambda: idx.search(q, K, nprobe=nprobe))
+            t = min(t, synced(lambda: idx.search(q, K, nprobe=nprobe))[1])
+            probes = idx.hnsw_probes(q, nprobe)
+            overlap = np.mean([len(set(a[a >= 0]) & set(b)) / nprobe
+                               for a, b in zip(probes, exact[:, :nprobe])])
+            runs[nprobe] = (t, id_recall(i, gt_I[held_out()]), overlap,
+                            int((probes < 0).sum()))
+        launches = launch_counts()
+        check(launches["scan_scores"] > 0, "[ivf hnsw] K2 never launched")
+        with uncounted():
+            idx.coarse_hnsw_m = None
+            exact_rec = {n: id_recall(idx.search(q, K, nprobe=n)[1],
+                                      gt_I[held_out()]) for n in runs}
+            idx.coarse_hnsw_m = IVF_HNSW_M
+        for nprobe, (t, rec, overlap, short) in runs.items():
+            log(f"[ivf hnsw] IVF{NLIST}_HNSW{IVF_HNSW_M},Flat nprobe "
+                f"{nprobe}: {N_TEST_Q} queries {t * 1e3:.2f} ms, recall@{K} "
+                f"(ids, exact ground truth) {rec:.4f} (the exact rank's "
+                f"{exact_rec[nprobe]:.4f}); the graph's lists overlap "
+                f"coarse_rank's top {nprobe} by {overlap:.4f} ({short} probe "
+                f"slots the graph left empty) [{card}]")
+        log(f"[ivf hnsw] the centroid graph ({g.ntotal} nodes, "
+            f"{g.max_level + 1} levels) built in {t_graph:.2f} s at the "
+            f"first search; launches {launches} [{card}]")
+        with uncounted():
+            calls = record_row_scans(
+                lambda: idx.search(q, K, nprobe=max(IVF_HNSW_NPROBES)),
+                "scan_scores")
+            big = max(calls, key=lambda x: int((x[1][6] >= 0).sum()))
+            k2 = k2_compare(
+                f"ivf hnsw nprobe {max(IVF_HNSW_NPROBES)}, the largest of "
+                f"{len(calls)} calls (B x n_slots {tuple(big[1][6].shape)})",
+                big[1], big[2], card, reps=10, terms_tol=True, codec=big[3],
+                label="k2 ivf hnsw")
+    finally:
+        idx.coarse_hnsw_m = None
+        idx._hnswq = None
+    return {"launches": launches, "kernels": k2}
+
+
+def bhnsw_phase(b: dict, card: str) -> None:
+    """[bhnsw]: BinaryHNSWIndex (M 16) over 20k of the [binary] phase's
+    "LSH128r" codes, and "BIVF1024_HNSW16" (the [binary] phase's centroid
+    bits, all 1M codes, its probes ranked by a binary HNSW over them):
+    recall@10 by ids against BFlat over the same codes, and ids equal to
+    the same index on the CPU (the card's graphs carried over) on 100
+    queries."""
+    from auncel_tpu_torch import convert
+    from auncel_tpu_torch.index.binary import (
+        BinaryFlatIndex, BinaryHNSWIndex, BinaryIVFIndex, pack_bits)
+    codes, qc = b["codes"], b["qc"]
+    n_sub = HNSW_CELL["nb"]
+
+    def on_cpu(bh):
+        """The same binary graph on the CPU (its file's keys)."""
+        g = bh._g
+        return convert.hnsw_from_numpy(dict(
+            g.state(), kind="BHNSW", codes=pack_bits(g._xb > 0.5)), "cpu")
+    sub = codes[:n_sub]
+    bflat = BinaryFlatIndex(128)
+    bflat.add(sub)
+    _, gt = bflat.search(qc, K)
+    bh = BinaryHNSWIndex(128, M=16)
+    bh.add(sub)
+    _, t_build = synced(bh.build)
+    for ef in (16, 64):
+        (v, i), t = synced(lambda: bh.search(qc, K, ef=ef))
+        cv, ci = on_cpu(bh).search(qc[:N_BINARY_CPU], K, ef=ef)
+        same = bool(np.array_equal(ci, i[:N_BINARY_CPU])
+                    and np.array_equal(cv, v[:N_BINARY_CPU]))
+        check(same, f"[bhnsw] BHNSW16 at ef {ef} differs from the CPU")
+        log(f"[bhnsw] BHNSW16 over {n_sub} codes (built in {t_build:.2f} s):"
+            f" ef {ef}: {N_TEST_Q} queries {t * 1e3:.2f} ms, recall@{K} "
+            f"(ids, BFlat) {id_recall(i, gt):.4f}; equal to the CPU on "
+            f"{N_BINARY_CPU} queries: {same} [{card}]")
+    bivf = BinaryIVFIndex(128, NLIST, coarse_hnsw_m=16)
+    bivf.centroid_bits = b["bivf"].centroid_bits
+    bivf.is_trained = True
+    bivf.add(codes)
+    cpu = convert.binary_from_numpy(dict(
+        d=128, nlist=NLIST, codes=codes,
+        centroid_bits=bivf.centroid_bits), "cpu")
+    cpu.coarse_hnsw_m = 16
+    _, gt_all = b["bflat"].search(qc, K)
+    for nprobe in (16, 64):
+        bivf.search(qc[:8], K, nprobe=nprobe)                      # warm
+        (v, i), t = synced(lambda: bivf.search(qc, K, nprobe=nprobe))
+        if cpu._coarse_g is None:
+            cpu._coarse_g = on_cpu(bivf._coarse_g)
+        cv, ci = cpu.search(qc[:N_BINARY_CPU], K, nprobe=nprobe)
+        same = bool(np.array_equal(ci, i[:N_BINARY_CPU])
+                    and np.array_equal(cv, v[:N_BINARY_CPU]))
+        check(same, f"[bhnsw] BIVF{NLIST}_HNSW16 nprobe {nprobe} differs "
+              "from the CPU")
+        log(f"[bhnsw] BIVF{NLIST}_HNSW16 nprobe {nprobe}: {N_TEST_Q} queries "
+            f"{t * 1e3:.2f} ms, recall@{K} (ids, BFlat over all {len(codes)}"
+            f" codes) {id_recall(i, gt_all):.4f}; equal to the CPU on "
+            f"{N_BINARY_CPU} queries: {same} [{card}]")
 
 
 # The JAX package's headline configuration, synthDeep10M with SQ8 storage
@@ -2854,6 +3189,10 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t0:.1f} s (the [ondisk], [range] "
         f"and [shards] phases {time.perf_counter() - t_od:.1f} s)")
     k2 = kernels_on_index(corpus, device, card)
+    t_new = time.perf_counter()
+    ivfh = ivf_hnsw_phase(corpus, card)
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [ivf hnsw] phase "
+        f"{time.perf_counter() - t_new:.1f} s)")
     del corpus["idx"]
     torch.cuda.empty_cache()
     t_new = time.perf_counter()
@@ -2864,11 +3203,22 @@ def main() -> int:
     t_new = time.perf_counter()
     tl = twolayer_phase(corpus, card)
     torch.cuda.empty_cache()
-    binary_phase(corpus, card)
-    del corpus
+    b = binary_phase(corpus, card)
+    t_bh = time.perf_counter()
+    bhnsw_phase(b, card)
+    del b, corpus
     torch.cuda.empty_cache()
     log(f"[total] 1M phases {time.perf_counter() - t0:.1f} s (the [2layer] "
-        f"and [binary] phases {time.perf_counter() - t_new:.1f} s)")
+        f"and [binary] phases {t_bh - t_new:.1f} s, [bhnsw] "
+        f"{time.perf_counter() - t_bh:.1f} s)")
+    t_new = time.perf_counter()
+    hnsw_phase(card)
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [hnsw], [hnsw sq8] "
+        f"and [hnsw pq8] phases {time.perf_counter() - t_new:.1f} s)")
+    t_new = time.perf_counter()
+    hnsw_scale_phase(card)
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [hnsw 200k] phase "
+        f"{time.perf_counter() - t_new:.1f} s)")
     t10 = time.perf_counter()
     sq8 = sq8_10m_phase(card, profile_dir)
     corpus10m = sq8.pop("corpus")
@@ -2936,6 +3286,9 @@ def main() -> int:
         {"name": "scan_scores pqr", "route": "cuda", "source": k2_src,
          "replaces": k2_tpu, "launches": pqr["launches"]["scan_scores"],
          "library_ms": None, **numbers(pqr["kernels"])},
+        {"name": "scan_scores ivf hnsw", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": ivfh["launches"]["scan_scores"],
+         "library_ms": None, **numbers(ivfh["kernels"])},
         {"name": "rowscan_scores eval", "route": "cuda", "source": k1_src,
          "replaces": k1_tpu, "launches": ev["launches"]["rowscan_scores"],
          "library_ms": None, **numbers(ev["kernels"]["rowscan_scores"])},

@@ -176,18 +176,24 @@ def test_binary_from_float_matches_jax():
 
 
 def test_binary_factory():
-    """BFlat and BIVFn are built as in the JAX package; the HNSW cells
-    raise naming their ROADMAP.md item, anything else raises."""
+    """BFlat, BIVFn and the graph cells BHNSWn and BIVFn_HNSWm (or
+    _BHNSWm) are built as in the JAX package; anything else raises."""
     i1 = tbin.index_binary_factory(16, "BIVF10", device=DEVICE)
     assert isinstance(i1, tbin.BinaryIVFIndex) and i1.nlist == 10
     assert i1.d // 8 == 2
     assert isinstance(tbin.index_binary_factory(16, "BFlat", device=DEVICE),
                       tbin.BinaryFlatIndex)
     for desc in ("BHNSW32", "BHNSW", "BIVF1024_BHNSW32", "BIVF64_HNSW16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tbin.index_binary_factory(256, desc, device=DEVICE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbin.BinaryIVFIndex(64, 8, coarse_hnsw_m=16, device=DEVICE)
+        t = tbin.index_binary_factory(256, desc, device=DEVICE)
+        j = jbin.index_binary_factory(256, desc)
+        assert type(t).__name__ == type(j).__name__, desc
+        assert t.d == j.d == 256
+        if isinstance(t, tbin.BinaryHNSWIndex):
+            assert (t._g.M, t._g.ef_search) == (j._g.M, j._g.ef_search)
+        else:
+            assert (t.nlist, t.coarse_hnsw_m) == (j.nlist, j.coarse_hnsw_m)
+    assert tbin.BinaryIVFIndex(64, 8, coarse_hnsw_m=16,
+                               device=DEVICE).coarse_hnsw_m == 16
     with pytest.raises(NotImplementedError):
         tbin.index_binary_factory(16, "BWhatever", device=DEVICE)
 

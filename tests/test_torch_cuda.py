@@ -10,8 +10,11 @@ directory, ``range_search`` with K2 against its plain version, and the
 on-disk index on the card against the CPU; the IMI slice on both layouts,
 IVFPQR, the transferred two-layer index, the binary and LSH indexes on
 the card against the CPU, and K2 on PQ codes at the IMI and transfer
-shapes. The entry points' default device is checked
-everywhere. This file imports no jax, so it also runs where jax is not
+shapes; k-means twice on the card (bitwise equal), the HNSW family (two
+builds on the card give one graph, an integer-data build equals the
+CPU's, and searches on the card equal the CPU's on the same graph: flat,
+SQ8, PQ and two-level storage, binary HNSW, BIVF_HNSW and IVF_HNSW with
+K2). The entry points' default device is checked everywhere. This file imports no jax, so it also runs where jax is not
 installed, without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -49,9 +52,11 @@ def test_entry_points_default_to_the_card():
     """Every entry point allocates on the card unless the caller passes
     device="cpu"; without a card the first allocation raises instead of
     falling back to the CPU."""
+    from auncel_tpu_torch.index.binary import BinaryHNSWIndex
     for fn in (att.IVFFlatIndex.__init__, compute_interdis, kmeans,
                convert.ivf_arrays_from_numpy, convert.multirow_from_numpy,
-               convert.traces_from_numpy):
+               convert.traces_from_numpy, att.HNSWIndex.__init__,
+               BinaryHNSWIndex.__init__, convert.hnsw_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     centers, _, _ = make_data()
     idx = att.IVFFlatIndex(D, NLIST)
@@ -892,3 +897,153 @@ def test_k2_pq_at_imi_and_transfer_shapes(nlist, cap):
     terms = (((q[:, None] - cl) ** 2).sum(-1)[:, :, None]
              + db_sq[lists.long()]).reshape(B, -1)
     assert ((got_s - want_s).abs()[fin] <= 1e-5 * terms[fin] + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", ["kmeans++", "random"])
+def test_kmeans_on_the_card_is_bitwise_repeatable(init):
+    """The mean update sums each centroid in a fixed order (a stable sort
+    by assignment, then one sequential sum a segment), so two trainings
+    on the card are bitwise equal; with numpy-drawn initial centroids the
+    card lands within the CPU's tolerance of the CPU."""
+    from auncel_tpu_torch.ops.kmeans import KmeansParams
+    dev = _card()
+    x = np.random.RandomState(3).randn(65536, 32).astype(np.float32)
+    p = KmeansParams(niter=8, init=init, balance_iters=2)
+    a = kmeans(x, 256, p, device=dev)
+    b = kmeans(x, 256, p, device=dev)
+    np.testing.assert_array_equal(a.centroids, b.centroids)
+    assert a.error == b.error
+    if init == "random":
+        c = kmeans(x, 256, p, device="cpu")
+        np.testing.assert_allclose(a.centroids, c.centroids, rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _hnsw_data(n: int = 4000, d: int = 32):
+    rng = np.random.RandomState(6)
+    c = rng.randn(40, d).astype(np.float32)
+    xb = (c[rng.randint(0, 40, n)] + 0.3 * rng.randn(n, d)).astype(
+        np.float32)
+    xq = (c[rng.randint(0, 40, 200)] + 0.4 * rng.randn(200, d)).astype(
+        np.float32)
+    return xb, xq
+
+
+def _tables(idx):
+    return [idx.levels, idx.entry_point] + list(idx.nb_tables) + \
+        list(idx.g2u)
+
+
+@pytest.mark.cuda
+def test_hnsw_builds_on_the_card_repeat():
+    """Two builds on the card (with a k-means-trained two-level storage
+    too) give one graph; on integer vectors, where every sum is exact, and
+    on floats (the graph's distances are float64 sums rounded once) the
+    card's build is the CPU's."""
+    dev = _card()
+    xb, _ = _hnsw_data()
+    for desc in ("HNSW16", "HNSW16_64+PQ8"):
+        built = []
+        for _ in range(2):
+            idx = att.index_factory(32, desc, device=dev)
+            idx.train(xb)
+            idx.add(xb)
+            idx.build()
+            built.append(_tables(idx))
+        for a, b in zip(*built):
+            np.testing.assert_array_equal(a, b)
+        if desc == "HNSW16":
+            float_card = built[0]
+    xi = np.random.RandomState(2).randint(-8, 8, (3000, 16)).astype(
+        np.float32)
+    for x, d, card in ((xi, 16, None), (xb, 32, float_card)):
+        out = [card] if card is not None else []
+        for device in ((dev, "cpu") if card is None else ("cpu",)):
+            idx = att.index_factory(d, "HNSW16" if card is not None
+                                    else "HNSW8", device=device)
+            idx.add(x)
+            idx.build()
+            out.append(_tables(idx))
+        for a, b in zip(*out):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("desc", ["HNSW16", "HNSW16_SQ8", "HNSW16_PQ8",
+                                  "HNSW16_64+PQ8"])
+def test_hnsw_search_on_the_card_equals_the_cpu(desc):
+    """A graph built on the card, carried to the CPU by its state: equal
+    ids, values within 1e-5, at ef 16 and 128."""
+    dev = _card()
+    xb, xq = _hnsw_data()
+    card = att.index_factory(32, desc, device=dev)
+    card.train(xb)
+    card.add(xb)
+    card.build()
+    assert card._dev[0].device.type == dev.type
+    cpu = convert.hnsw_from_numpy(card.state(), device="cpu")
+    for ef in (16, 128):
+        cv, ci = card.search(xq, 10, ef=ef)
+        pv, pi = cpu.search(xq, 10, ef=ef)
+        np.testing.assert_array_equal(ci, pi)
+        np.testing.assert_allclose(cv, pv, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_graph_quantizers_on_the_card_equal_the_cpu():
+    """BinaryHNSW, BIVF_HNSW and IVF_HNSW (K2 on the graph-ranked lists)
+    on the card against the CPU on the same state and coarse graph."""
+    from auncel_tpu_torch.index import binary as tbin
+    dev = _card()
+    xb, xq = _hnsw_data()
+
+    def on_cpu(bh):
+        """The same binary graph on the CPU (its file's keys)."""
+        g = bh._g
+        return convert.hnsw_from_numpy(dict(
+            g.state(), kind="BHNSW", codes=tbin.pack_bits(g._xb > 0.5)),
+            "cpu")
+    codes = tbin.pack_bits((xb > 0).astype(np.uint8))
+    qcodes = tbin.pack_bits(xq > 0)
+    bh = tbin.BinaryHNSWIndex(32, M=8, device=dev)
+    bh.add(codes)
+    bh.build()
+    for a, b in zip(bh.search(qcodes, 10, ef=32),
+                    on_cpu(bh).search(qcodes, 10, ef=32)):
+        np.testing.assert_array_equal(a, b)
+    bivf = tbin.BinaryIVFIndex(32, 16, coarse_hnsw_m=8, device=dev)
+    bivf.train(codes)
+    bivf.add(codes)
+    cpu_ivf = convert.binary_from_numpy(dict(
+        d=32, nlist=16, codes=codes, centroid_bits=bivf.centroid_bits),
+        "cpu")
+    cpu_ivf.coarse_hnsw_m = 8
+    bivf.search(qcodes[:1], 1, nprobe=4)
+    cpu_ivf._coarse_g = on_cpu(bivf._coarse_g)
+    for nprobe in (1, 4, 16):
+        for a, b in zip(bivf.search(qcodes, 10, nprobe=nprobe),
+                        cpu_ivf.search(qcodes, 10, nprobe=nprobe)):
+            np.testing.assert_array_equal(a, b)
+    ivf = att.index_factory(32, "IVF64_HNSW16,Flat", device=dev)
+    ivf.train(xb)
+    ivf.add(xb)
+    state = {f: v.cpu().numpy() for f, v in ivf.arrays._asdict().items()
+             if isinstance(v, torch.Tensor)}
+    cpu = att.IVFFlatIndex.from_state(
+        ivf.centroids, convert.ivf_arrays_from_numpy(state, "cpu"))
+    cpu.coarse_hnsw_m = 16
+    cpu._hnswq = convert.hnsw_from_numpy(ivf.hnsw_quantizer().state(), "cpu")
+    for nprobe in (4, 16):
+        np.testing.assert_array_equal(ivf.hnsw_probes(xq, nprobe),
+                                      cpu.hnsw_probes(xq, nprobe))
+        before = scan_scores.launches
+        cv, ci = ivf.search(xq, K, nprobe=nprobe)
+        assert scan_scores.launches > before
+        pv, pi = cpu.search(xq, K, nprobe=nprobe)
+        # K2 and its plain version sum the dots in other orders: ids may
+        # swap only between results within 1e-5 of each other
+        np.testing.assert_allclose(cv, pv, rtol=1e-5, atol=1e-5)
+        for r, c in zip(*np.nonzero(ci != pi)):
+            near = np.abs(pv[r] - pv[r, c]) <= 1e-5 * abs(pv[r, c]) + 1e-5
+            assert ci[r, c] in pi[r][near] or c == K - 1, (r, c)

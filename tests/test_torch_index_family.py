@@ -332,8 +332,14 @@ def test_factory_matches_jax(metric):
         for module, kw in ((tfac, dict(device=DEVICE)), (jfac, {})):
             with pytest.raises(AssertionError):
                 module.index_factory(D, "IVF8,PQ4+8", metric, **kw)
-    for desc in ("HNSW32", "HNSW16_SQ8", "IVF8_HNSW4,Flat", "IVF8,Bogus",
-                 "NotAnIndex"):
+    # the graph cells and the HNSW coarse quantizer build as in JAX
+    for desc in ("HNSW32", "HNSW16_SQ8", "IVF8_HNSW4,Flat"):
+        t = tfac.index_factory(D, desc, metric, device=DEVICE)
+        j = jfac.index_factory(D, desc, metric)
+        assert _shape(t) == _shape(j), desc
+        assert getattr(t, "coarse_hnsw_m", None) == \
+            getattr(j, "coarse_hnsw_m", None)
+    for desc in ("IVF8,Bogus", "NotAnIndex"):
         with pytest.raises(NotImplementedError):
             tfac.index_factory(D, desc, metric, device=DEVICE)
     for module in (tfac, jfac):

@@ -292,17 +292,29 @@ def test_trained_only_file_cross_load(tmp_path):
 
 
 def test_other_kinds_raise(tmp_path):
-    """A kind the JAX package writes and the port does not load yet (the
-    binary HNSW index) raises naming its ROADMAP.md item, and an index the
-    port cannot write raises."""
+    """The binary HNSW kind loads in both directions (a three-code graph:
+    the JAX package's file in the port, the port's in the JAX package),
+    and an index the port cannot write raises."""
     from auncel_tpu.index.binary import BinaryHNSWIndex
+    from auncel_tpu.index.io import load_index as jload
     from auncel_tpu.index.io import save_index as jsave
+    from auncel_tpu_torch.index.binary import BinaryHNSWIndex as TBH
     from auncel_tpu_torch.index.io import load_index, save_index
+    codes = np.arange(6, dtype=np.uint8).reshape(3, 2)
     bh = BinaryHNSWIndex(16, M=4)
-    bh.add(np.arange(6, dtype=np.uint8).reshape(3, 2))
+    bh.add(codes)
     jsave(bh, str(tmp_path / "bhnsw.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_index(str(tmp_path / "bhnsw.npz"), device=DEVICE)
+    back = load_index(str(tmp_path / "bhnsw.npz"), device=DEVICE)
+    assert isinstance(back, TBH) and back.ntotal == 3
+    for l in range(bh._g.max_level + 1):
+        np.testing.assert_array_equal(back._g.nb_tables[l],
+                                      bh._g.nb_tables[l])
+    np.testing.assert_array_equal(back.search(codes, 3, ef=8)[1],
+                                  bh.search(codes, 3, ef=8)[1])
+    save_index(back, str(tmp_path / "back.npz"))
+    jback = jload(str(tmp_path / "back.npz"))
+    assert isinstance(jback, BinaryHNSWIndex)
+    np.testing.assert_array_equal(jback._g.levels, bh._g.levels)
     with pytest.raises(NotImplementedError):
         save_index(object(), str(tmp_path / "x.npz"))
 

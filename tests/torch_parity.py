@@ -155,3 +155,39 @@ def padded_systems():
 
 def tnp(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def hnsw_state(jidx) -> dict:
+    """A JAX HNSW index's state under its file's keys (the graph, the
+    vectors or the storage codes and codec, and the reconstruct-from-
+    neighbours state when set), for ``convert.hnsw_from_numpy``."""
+    st = dict(kind=type(jidx).__name__, d=jidx.d, M=jidx.M,
+              ef_search=jidx.ef_search, metric=jidx.metric.value,
+              levels=np.asarray(jidx.levels), entry=jidx.entry_point,
+              max_level=jidx.max_level,
+              **{f"table{l}": np.asarray(t)
+                 for l, t in enumerate(jidx.nb_tables)},
+              **{f"g2u{l}": np.asarray(g) for l, g in enumerate(jidx.g2u)},
+              **{k: np.asarray(v) for k, v in jidx._io_extra().items()})
+    if not jidx._io_stores_codes():
+        st["xb"] = np.asarray(jidx._xb)
+    rfn = jidx.reconstruct_from_neighbors
+    if rfn is not None:
+        st["recons"] = dict(k=rfn.k, nsq=rfn.nsq, codebook=rfn.codebook,
+                            codes=rfn.codes)
+        if hasattr(rfn, "k_reorder"):
+            st["recons"]["k_reorder"] = rfn.k_reorder
+    return st
+
+
+def jax_hnsw_from_port(tidx):
+    """The port's HNSW index as the JAX package loads it from the port's
+    ``.npz`` (the JAX package builds a graph with one XLA compile a batch
+    bucket and level, about 40 s on the CPU, so most parity tests carry a
+    graph the port built)."""
+    import io
+    from auncel_tpu.index.hnsw import HNSWIndex
+    buf = io.BytesIO()
+    tidx.save(buf)
+    buf.seek(0)
+    return HNSWIndex.load(buf)
