@@ -27,7 +27,10 @@ and error-bounded search, paging only the probed lists), ``index/aux.py``
 has range search and removal, ``index/invlists.py`` and
 ``index/ivflib.py`` compose and split inverted lists, and
 ``index/meta.py`` federates indexes (shards, dimension splits,
-replicas).
+replicas). Scale-out: ``parallel/`` has ``ShardedIVF`` (per-shard IVF
+indexes and profiles on a mesh of devices, the merge of their top-k) and
+the data-parallel k-means; ``eval_harness/dist_bench.py`` measures it,
+``figures/`` plots the harness's logs, and ``c_api/`` is the C ABI.
 """
 
 from auncel_tpu_torch.types import Metric

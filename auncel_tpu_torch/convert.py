@@ -13,7 +13,9 @@ IVFPQR's codes with its refine state, ``Index2Layer``'s centroids, books,
 list ids and codes, the binary indexes' codes and centroid bits, the
 LSH indexes' rotation, thresholds, period and centroids, and the HNSW
 graphs (levels, entry point, each level's links, the vectors or the
-storage codes and codec, the reconstruct-from-neighbours codebook). With
+storage codes and codec, the reconstruct-from-neighbours codebook), and a
+sharded index (each shard's arrays, the stacked profiles and the
+calibration). With
 them both packages compute on identical state. The tensors go to the card
 unless ``device`` says otherwise.
 """
@@ -31,6 +33,7 @@ from auncel_tpu_torch.index.ivf import IVFFlatIndex
 from auncel_tpu_torch.index.lsh import IndexLSH, IVFSpectralHashIndex
 from auncel_tpu_torch.index.twolayer import Index2Layer
 from auncel_tpu_torch.ops.pq import PQCodebooks
+from auncel_tpu_torch.parallel.sharded import ShardedIVF, make_mesh
 from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.index.scan import IVFArrays, RowArrays
 from auncel_tpu_torch.index.multirow import MultiRowArrays
@@ -232,3 +235,32 @@ def hnsw_from_numpy(state: dict, device="cuda"):
             r.k_reorder = int(rec["k_reorder"])
         idx.reconstruct_from_neighbors = r
     return idx
+
+
+def sharded_from_numpy(meta: dict, shard_states: list, traces_state,
+                       device="cuda"):
+    """A ShardedIVF holding the JAX package's sharded state, every shard
+    on ``device``. ``meta`` has the keys of its ``meta.json`` (d, nlist,
+    n_shards, storage, metric, multipler, std_m, max_topk,
+    multirow_row_cap); ``shard_states`` each shard's IVFArrays fields;
+    ``traces_state`` the stacked TraceSet fields ([S, T, max_bins], or
+    None before ``train_profiles``). The multi-row layouts and the shared
+    one-shot plan are rebuilt from the shards' arrays."""
+    s = ShardedIVF(meta["d"], meta["nlist"], meta["n_shards"],
+                   Metric.parse(meta["metric"]),
+                   mesh=make_mesh(meta["n_shards"], devices=[device]),
+                   storage=meta.get("storage", "f32"))
+    s.shards = [IVFFlatIndex.from_state(st["centroids"],
+                                        ivf_arrays_from_numpy(st, device),
+                                        metric=s.metric)
+                for st in shard_states]
+    s.multipler = float(meta["multipler"])
+    s.std_m = float(meta["std_m"])
+    if meta.get("max_topk"):
+        s.max_topk = int(meta["max_topk"])
+    if traces_state is not None:
+        s._set_traces({f: np.asarray(traces_state[f])
+                       for f in TraceSet._fields})
+    if meta.get("multirow_row_cap"):
+        s.enable_multirow(int(meta["multirow_row_cap"]))
+    return s

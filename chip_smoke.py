@@ -126,6 +126,27 @@ then
                    timed apart), recall@10 by ids at least [pq 10M
                    fixed]'s or the run fails, reconstruct_batch of 1000
                    ids equal to the CPU's, K2 against its plain version;
+  [sharded 10M]    the reference's distributed mode on the same corpus:
+                   ShardedIVF with four IVF1024 + SQ8 shards of 2.5M
+                   rows, all on the one card (make_mesh(4)): the build,
+                   per-shard profiles on the 1000 training queries,
+                   enable_multirow(256) with the plan shared by every
+                   shard, the held-out window at bound 0.9 (multipler
+                   from 8, doubled up to 64 while the worst recall@10
+                   against the merged per-shard exact search misses 0.9;
+                   the run fails below it), timed beside the unsharded
+                   [sq8 10M] window, and 200 batch-1 queries; each
+                   shard's n_scanned equal to its own one-shot engine,
+                   the merge equal to a numpy stable merge, K1 at the
+                   largest per-shard row scan against its plain version;
+                   fixed-nprobe search at nprobe 32 equal to the shards
+                   merged, K2 at its largest call against its plain
+                   version; save -> load through a temporary directory
+                   (equal ids and n_scanned); drop_shard(1) (no id of
+                   shard 1, the survivors' n_scanned unchanged);
+  [dp kmeans]      data-parallel k-means over the same 10M vectors, four
+                   shards of the card, k 1024: two runs bitwise equal or
+                   the run fails, the error against a one-shard run;
   [eval]           the evaluation harness's experiments on the card
                    (auncel_tpu_torch.eval_harness), from a temporary
                    directory that holds their caches and logs: bound and
@@ -142,7 +163,14 @@ then
                    largest row scan of LAET's search and K2 at LAET's
                    feature call against their plain versions; then
                    effect_error (satisfaction of the mixed bounds >= 0.9
-                   or it fails), effect_time and overhead at synth100K.
+                   or it fails), effect_time and overhead at synth100K;
+  [dist]           dist_bench.run at its defaults (synth10K, 1, 2, 4 and
+                   8 shards on the card) into a temporary directory, its
+                   log and figure, failing unless K1 and K2 launched;
+  [c api]          the C API (auncel_tpu_torch/c_api) built with make and
+                   its demo run with AUNCEL_C_DEVICE=cuda, failing if
+                   either fails where python3-config works (the line says
+                   so where it does not).
 Every path is driven through the port's public entry points on their
 default device, with the kernels' launch counts set to 0 just before it
 and read just after (the launches that compare K1 with other routes are
@@ -172,6 +200,7 @@ tree's kernels on the same shapes.
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2498,6 +2527,7 @@ def sq8_10m_phase(card: str, profile_dir: str | None) -> dict:
         kernels = kernels_10m(es, xq, card)
     return {"launches": launches, "kernels": kernels,
             "min_recall": window["min_recall"],
+            "window_ms": window["seconds"] * 1e3,
             "corpus": dict(xb=c["xb"], xq=xq, centroids=idx.centroids)}
 
 
@@ -2877,6 +2907,317 @@ def pqr_10m_phase(corpus: dict, gt_ids: np.ndarray, pq_recall: float,
     return {"launches": launches, "kernels": kern, "recall": rec}
 
 
+# [sharded 10M]: the reference's distributed mode (dist/worker.cpp:153-235:
+# a round-robin row split, an IVF and an error profile built on each shard,
+# each shard's top-k merged a query, reduce.cpp:98-133) with the JAX
+# package's production codec, on the synthDeep10M corpus: four shards of
+# 2.5M x 96, each IVF1024 + SQ8, all on the one card (make_mesh(4) places
+# every shard on it). Profiles on the [sq8 10M] phase's 1000 training
+# queries, its 1000 held-out queries served at bound 0.9.
+SHARDS10M, SHARD_ROW_CAP, SHARD_NPROBE = 4, 256, 32
+SHARD_MULT0, SHARD_MULT_MAX = 8.0, 64.0   # dist_bench's multipler, cap
+
+
+def np_merge(per: list, k: int) -> tuple:
+    """The per-shard results (vals [B, k'], ids) merged in numpy: laid out
+    in shard order, a stable sort by value, the first k."""
+    v = np.concatenate([p[0] for p in per], axis=1)
+    i = np.concatenate([p[1] for p in per], axis=1)
+    order = np.argsort(v, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(v, order, 1),
+            np.take_along_axis(i, order, 1).astype(np.int64))
+
+
+def shard_replays(s, q: np.ndarray, acc: np.ndarray) -> list:
+    """Each shard's own one-shot engine with the shared plan on the
+    queries: (vals, ids, n_scanned) numpy a shard."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.profile.bounded_mr import bounded_oneshot_mr
+    out = []
+    for k, sh in enumerate(s.shards):
+        dev = sh.device
+        r = bounded_oneshot_mr(
+            sh.arrays, s.mr[k], s.traces[k], torch.as_tensor(q, device=dev),
+            torch.as_tensor(acc, device=dev),
+            torch.tensor(s.multipler, dtype=torch.float32, device=dev),
+            torch.tensor(s.std_m, dtype=torch.float32, device=dev),
+            torch.zeros(q.shape[0], device=dev), K, MAX_TOPK, Metric.L2,
+            s._mr_plan)
+        out.append((r[0].cpu().numpy(), r[1].cpu().numpy(),
+                    r[3].cpu().numpy()))
+    return out
+
+
+def sharded_bytes(s) -> dict:
+    """Bytes on the card: every shard's padded codes, row codes, norms and
+    ids."""
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    out = {"padded codes": 0, "row codes": 0, "norms": 0, "ids": 0}
+    for sh, m in zip(s.shards, s.mr):
+        a = sh.arrays
+        out["padded codes"] += nbytes(a.db)
+        out["row codes"] += nbytes(m.rows.db)
+        out["norms"] += nbytes(a.db_sq, m.rows.db_sq)
+        out["ids"] += nbytes(a.vec_ids, m.rows.vec_ids)
+    return out
+
+
+def sharded_10m_phase(corpus: dict, card: str, sq8_window_ms: float
+                      ) -> dict:
+    """[sharded 10M]: build, per-shard profiles, the multi-row layouts and
+    the shared plan, then the held-out window at bound 0.9 with the
+    multipler doubled from 8 while the worst recall@10 misses 0.9 (up to
+    64; the run fails below 0.9), timed as a median of 5, and 200 batch-1
+    queries; each shard's n_scanned held to its own one-shot engine, the
+    merged ids to a numpy stable merge, K1 to its plain version at the
+    largest per-shard row scan; fixed-nprobe search at nprobe 32 equal to
+    the per-shard results merged, K2 held at its largest call; save ->
+    load equal; drop_shard(1): no id of shard 1, the survivors' n_scanned
+    unchanged."""
+    import tempfile
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.autotune import recall_counts
+    from auncel_tpu_torch.index.scan import ivf_search_fixed
+    from auncel_tpu_torch.parallel import ShardedIVF, make_mesh
+
+    xb, xq = corpus["xb"], corpus["xq"]
+    q = xq[START10M:START10M + N_TEST_Q]
+    acc = np.full(N_TEST_Q, 1.0 - EPS, np.float32)
+    mesh = make_mesh(SHARDS10M)
+    check({str(d) for d in mesh.devices.flat} == {"cuda:0"}
+          or torch.cuda.device_count() > 1, f"mesh {mesh.devices}")
+    times = {}
+    reset_counts()
+    s = ShardedIVF(D10M, NLIST, SHARDS10M, storage="sq8", mesh=mesh)
+    _, times["build"] = synced(lambda: s.build(xb))
+    _, times["train_profiles"] = synced(
+        lambda: s.train_profiles(xq[:PROFILE10M], MAX_TOPK))
+    train = launch_counts()
+    _, times["multirow"] = synced(lambda: s.enable_multirow(SHARD_ROW_CAP))
+    nb = sharded_bytes(s)
+    log(f"[sharded 10M] {SHARDS10M} shards of {NB10M // SHARDS10M}x{D10M} "
+        f"SQ8, nlist {NLIST} each, on {len({str(d) for d in mesh.devices.flat})}"
+        f" device(s): caps {[sh.arrays.cap for sh in s.shards]}, rows "
+        f"{[m.rows.db.shape[0] for m in s.mr]}, row cap {s._mr_row_cap}; "
+        f"on the card: " + ", ".join(f"{k} {v / 2**30:.3f} GiB"
+                                     for k, v in nb.items())
+        + f"; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"[{card}]")
+    with uncounted():
+        (gt_D, gt_I), times["exact_search"] = synced(lambda: np_merge(
+            [sh.exact_search(q, K) for sh in s.shards], K))
+
+    def serve():
+        (out, dt), n = counted(
+            lambda: synced(lambda: s.search_bounded(q, acc, K)))
+        return out, dt, recall_counts(out[0], gt_D, K, Metric.L2), n
+
+    s.multipler = SHARD_MULT0
+    out, dt, cnt, n = serve()
+    while cnt.min() < K * (1.0 - EPS) and s.multipler < SHARD_MULT_MAX:
+        s.multipler = min(s.multipler * 2.0, SHARD_MULT_MAX)
+        log(f"[sharded 10M] bound violated at min_recall="
+            f"{cnt.min() / K:.3f}; multipler to {s.multipler:.1f}")
+        out, dt, cnt, n = serve()
+    reps = [serve()[1] for _ in range(SEARCH_REPS)]
+    window_ms = float(np.median(reps)) * 1e3
+    with uncounted():
+        dev_ms = device_ms(lambda: s.search_bounded(q, acc, K), 1)
+    vals, ids, nscan = out
+    check(vals.shape == (N_TEST_Q, MAX_TOPK) and np.isfinite(
+        vals[:, :K]).all() and (ids[:, :K] >= 0).all(),
+        f"sharded 10M: results {vals.shape}")
+    min_recall = cnt.min() / K
+    check(min_recall >= 1.0 - EPS,
+          f"sharded 10M: worst-case recall {min_recall}")
+    log(f"[sharded 10M] window times over {SEARCH_REPS} warm repeats: "
+        + " ".join(f"{r * 1e3:.2f}" for r in reps) + f" ms (median "
+        f"{window_ms:.2f} ms; the unsharded [sq8 10M] window "
+        f"{sq8_window_ms:.2f} ms, ratio {window_ms / sq8_window_ms:.2f}); "
+        "device time a window (profiler) "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.2f} ms"))
+    log(f"[sharded 10M] {N_TEST_Q} held-out queries: worst recall@{K}="
+        f"{min_recall:.3f} mean={cnt.mean() / K:.4f} multipler="
+        f"{s.multipler:.1f} std_m={s.std_m} qps="
+        f"{N_TEST_Q / window_ms * 1e3:.1f}; mean n_scanned a shard "
+        f"{[round(float(r.mean()), 2) for r in nscan]}; launches={n} "
+        f"[{card}]")
+    lat = []
+    for i in range(N_LATENCY10M):
+        _, t = synced(lambda: s.search_bounded(q[i:i + 1], acc[i:i + 1], K))
+        lat.append(t * 1e3)
+    lat = np.asarray(lat)
+    log(f"[sharded 10M latency] batch-1 over {N_LATENCY10M} held-out "
+        f"queries: p50={np.percentile(lat, 50):.2f} ms p99="
+        f"{np.percentile(lat, 99):.2f} ms max={lat.max():.2f} ms [{card}]")
+
+    with uncounted():
+        per = shard_replays(s, q, acc)
+        for k, (_, _, ns) in enumerate(per):
+            check(np.array_equal(ns, nscan[k]),
+                  f"shard {k}'s n_scanned differs from its own engine")
+        mv, mi = np_merge([p[:2] for p in per], MAX_TOPK)
+        check(np.array_equal(mi, ids) and np.array_equal(mv, vals),
+              "the merge differs from a numpy stable merge")
+        calls = record_row_scans(lambda: s.search_bounded(q, acc, K))
+        big = max(calls, key=lambda c: int((c[1][6] >= 0).sum()))
+        k1 = k1_compare(f"sharded 10M window, the largest of {len(calls)} "
+                        f"per-shard row scans ({big[0]})", big[1], big[2],
+                        card, reps=10, terms_tol=True, codec=big[3],
+                        label="k1 sharded")
+    log(f"[sharded 10M] each shard's n_scanned equals its own one-shot "
+        f"engine with the shared plan; the merge equals a numpy stable "
+        f"merge")
+
+    (fv, fi), t_fixed = synced(lambda: s.search(q, K, SHARD_NPROBE))
+    with uncounted():
+        want = np_merge([tuple(t.cpu().numpy() for t in ivf_search_fixed(
+            sh.arrays, torch.as_tensor(q, device=sh.device), K,
+            SHARD_NPROBE, Metric.L2)) for sh in s.shards], K)
+        check(np.array_equal(fi, want[1]) and np.array_equal(fv, want[0]),
+              "sharded fixed-nprobe search differs from the shards merged")
+        calls = record_row_scans(lambda: s.search(q, K, SHARD_NPROBE),
+                                 "scan_scores")
+        big = max(calls, key=lambda c: int((c[1][6] >= 0).sum()))
+        k2 = k2_compare(f"sharded 10M fixed nprobe {SHARD_NPROBE}, the "
+                        f"largest of {len(calls)} per-shard calls (B x "
+                        f"n_slots {tuple(big[1][6].shape)})", big[1],
+                        big[2], card, reps=10, terms_tol=True,
+                        codec=big[3], label="k2 sharded")
+    log(f"[sharded 10M fixed] nprobe {SHARD_NPROBE}: {t_fixed * 1e3:.2f} ms "
+        f"for {N_TEST_Q} queries, equal to the per-shard results merged; "
+        f"recall@{K} {recall_counts(fv, gt_D, K, Metric.L2).mean() / K:.4f}"
+        f" [{card}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, times["save"] = synced(lambda: s.save(tmp))
+        size = sum(os.path.getsize(os.path.join(tmp, f))
+                   for f in os.listdir(tmp))
+        loaded, times["load"] = synced(lambda: ShardedIVF.load(tmp))
+    _, li, ln = loaded.search_bounded(q, acc, K)
+    check(np.array_equal(li, ids) and np.array_equal(ln, nscan),
+          "sharded save -> load changed the results")
+    del loaded
+    torch.cuda.empty_cache()
+    log(f"[sharded 10M] save {times['save']:.2f} s, {size / 2**30:.2f} GiB; "
+        f"load {times['load']:.2f} s; equal ids and n_scanned")
+    _, times["drop_shard"] = synced(lambda: s.drop_shard(1))
+    dv, di, dn = s.search_bounded(q, acc, K)
+    live = di[di >= 0]
+    check(not np.any(live % SHARDS10M == 1), "shard 1's ids after the drop")
+    check(np.array_equal(dn, np.delete(nscan, 1, axis=0)),
+          "the survivors' n_scanned changed after drop_shard")
+    launches = launch_counts()
+    log(f"[sharded 10M] drop_shard(1) in {times['drop_shard']:.2f} s: no id "
+        f"of shard 1, the survivors' n_scanned unchanged; worst recall@{K} "
+        f"against the whole corpus now "
+        f"{recall_counts(dv, gt_D, K, Metric.L2).min() / K:.3f}")
+    log("[sharded 10M stages] " + " ".join(f"{k}={v:.2f}s"
+                                           for k, v in times.items())
+        + f" [{card}]")
+    log(f"[sharded 10M] launches over the path: {launches}, profile "
+        f"training {train}")
+    check(train["scan_scores"] > 0, "sharded profile training never "
+          "launched K2")
+    check(launches["rowscan_scores"] > 0 and n["rowscan_scores"] > 0,
+          "sharded bounded search never launched K1")
+    check(launches["scan_scores"] > train["scan_scores"],
+          "sharded fixed-nprobe search never launched K2")
+    return {"launches": launches, "kernels": {"rowscan_scores": k1,
+                                              "scan_scores": k2}}
+
+
+# [dp kmeans]: data-parallel k-means (parallel/kmeans_dp.py) over the
+# synthDeep10M corpus split in four shards of the one card, k 1024, the
+# JAX package's 25 steps from its seed
+DP_KMEANS_K, DP_KMEANS_SHARDS = 1024, 4
+
+
+def dp_kmeans_phase(xb: np.ndarray, card: str) -> None:
+    """Two runs bitwise equal, or the run fails; the error and time
+    against a one-shard run."""
+    from auncel_tpu_torch.parallel import dp_kmeans, make_mesh
+    runs = []
+    for S in (DP_KMEANS_SHARDS, DP_KMEANS_SHARDS, 1):
+        (c, err), t = synced(lambda: dp_kmeans(xb, DP_KMEANS_K,
+                                               make_mesh(S)))
+        runs.append((c, err, t))
+        torch.cuda.empty_cache()
+    (c1, e1, t1), (c2, e2, t2), (_, e0, t0) = runs
+    same = bool(np.array_equal(c1, c2) and e1 == e2)
+    log(f"[dp kmeans] {xb.shape[0]}x{xb.shape[1]}, k {DP_KMEANS_K}, 25 "
+        f"steps: {DP_KMEANS_SHARDS} shards {t1:.2f} / {t2:.2f} s, err "
+        f"{e1:.6g}, two runs bitwise equal: {same}; one shard {t0:.2f} s, "
+        f"err {e0:.6g} (relative difference {abs(e1 - e0) / e0:.3g}) "
+        f"[{card}]")
+    check(same, "dp_kmeans on the card does not repeat bit for bit")
+    check(bool(np.isfinite(c1).all()), "dp_kmeans: non-finite centroids")
+
+
+def dist_phase(card: str) -> None:
+    """[dist]: dist_bench.run at its defaults from a temporary directory
+    (its log and figure checked), failing unless K1 and K2 launched."""
+    import tempfile
+    from auncel_tpu_torch.eval_harness import dist_bench
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        rows, t = synced(lambda: dist_bench.run(log_dir=tmp))
+        launches = launch_counts()
+        logged = np.loadtxt(os.path.join(tmp, "Dist_scaling.log"), ndmin=2)
+        fig = os.path.exists(os.path.join(tmp, "fig16.png"))
+    check([r[0] for r in rows] == [1, 2, 4, 8] and logged.shape == (4, 2),
+          f"dist_bench rows {rows}")
+    check(launches["rowscan_scores"] > 0 and launches["scan_scores"] > 0,
+          f"dist_bench launches {launches}")
+    log(f"[dist] synth10K, nlist 64, 64 queries at bound 0.9: "
+        + ", ".join(f"{S} shards {ms:.3f} ms/query" for S, ms in rows)
+        + f"; fig16.png drawn: {fig}; {t:.1f} s; launches {launches} "
+        f"[{card}]")
+
+
+def c_api_phase(card: str) -> None:
+    """[c api]: make and the demo with AUNCEL_C_DEVICE=cuda; a failed
+    build or run fails the script where ``python3-config --includes``
+    works, and the line says so where it does not."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, "auncel_tpu_torch", "c_api")
+    try:
+        cfg = subprocess.run(["python3-config", "--includes"],
+                             capture_output=True, text=True, timeout=60)
+        have = cfg.returncode == 0 and "-I" in cfg.stdout
+    except FileNotFoundError:
+        have = False
+    if not have:
+        log("[c api] python3-config is missing on this machine: the C API "
+            "is not built here")
+        return
+    t0 = time.perf_counter()
+    # -B: build from this checkout on this machine, whatever is in _build
+    build = subprocess.run(["make", "-B", "-C", src, "demo"],
+                           capture_output=True, text=True, timeout=300)
+    check(build.returncode == 0, f"c_api build failed: "
+          f"{build.stderr[-800:]}")
+    t_build = time.perf_counter() - t0
+    env = dict(os.environ, AUNCEL_C_DEVICE="cuda", AUNCEL_PY_ROOT=root)
+    out = os.path.join(root, "auncel_tpu_torch", "_build", "c_api")
+    t0 = time.perf_counter()
+    run = subprocess.run([os.path.join(out, "demo_c")], capture_output=True,
+                         text=True, timeout=600, env=env, cwd=out)
+    t_run = time.perf_counter() - t0
+    check(run.returncode == 0, f"c_api demo failed: {run.stdout[-500:]} "
+          f"{run.stderr[-800:]}")
+    lines = {ln.split(":")[0]: ln.split(":")[1].split()
+             for ln in run.stdout.splitlines()
+             if ln.startswith(("fixed:", "bounded:"))}
+    check(sorted(lines) == ["bounded", "fixed"]
+          and all(len(v) == 32 * 5 for v in lines.values()),
+          f"c_api demo output: {run.stdout[-500:]}")
+    log(f"[c api] built in {t_build:.2f} s; demo on the card (AUNCEL_C_"
+        f"DEVICE=cuda) in {t_run:.2f} s: "
+        + run.stdout.strip().splitlines()[-1] + f" [{card}]")
+
+
 # [eval]: the evaluation harness's experiments on the card, as
 # ``python -m auncel_tpu_torch.eval_harness.bound synthHard1M 2000 1000 10
 # 0.10 --profile-size 1000`` and the same for compare (1M x 128 with the
@@ -3233,14 +3574,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_pq = time.perf_counter()
     pqr = pqr_10m_phase(corpus10m, gt10m, pq["recall_ids"], card)
-    del corpus10m
     log(f"[total] {time.perf_counter() - t0:.1f} s (the [pqr 10M] phase "
         f"{time.perf_counter() - t_pq:.1f} s)")
     torch.cuda.empty_cache()
+    t_sh = time.perf_counter()
+    sh = sharded_10m_phase(corpus10m, card, sq8["window_ms"])
+    torch.cuda.empty_cache()
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [sharded 10M] "
+        f"phase {time.perf_counter() - t_sh:.1f} s)")
+    t_sh = time.perf_counter()
+    dp_kmeans_phase(corpus10m["xb"], card)
+    del corpus10m
+    torch.cuda.empty_cache()
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [dp kmeans] phase "
+        f"{time.perf_counter() - t_sh:.1f} s)")
     t_eval = time.perf_counter()
     ev = eval_phase(card)
     log(f"[total] {time.perf_counter() - t0:.1f} s (the [eval] phase "
         f"{time.perf_counter() - t_eval:.1f} s)")
+    t_new = time.perf_counter()
+    dist_phase(card)
+    c_api_phase(card)
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [dist] and [c api] "
+        f"phases {time.perf_counter() - t_new:.1f} s)")
 
     def launches(name):
         return mr_launches[name] + pad_launches[name]
@@ -3294,7 +3650,13 @@ def main() -> int:
          "library_ms": None, **numbers(ev["kernels"]["rowscan_scores"])},
         {"name": "scan_scores eval", "route": "cuda", "source": k2_src,
          "replaces": k2_tpu, "launches": ev["launches"]["scan_scores"],
-         "library_ms": None, **numbers(ev["kernels"]["scan_scores"])}]
+         "library_ms": None, **numbers(ev["kernels"]["scan_scores"])},
+        {"name": "rowscan_scores sharded", "route": "cuda", "source": k1_src,
+         "replaces": k1_tpu, "launches": sh["launches"]["rowscan_scores"],
+         "library_ms": None, **numbers(sh["kernels"]["rowscan_scores"])},
+        {"name": "scan_scores sharded", "route": "cuda", "source": k2_src,
+         "replaces": k2_tpu, "launches": sh["launches"]["scan_scores"],
+         "library_ms": None, **numbers(sh["kernels"]["scan_scores"])}]
     # the other codecs run only in the comparisons (no main-path launch)
     for (name, codec), res in codecs.items():
         if codec == "sq8":

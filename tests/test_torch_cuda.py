@@ -14,7 +14,9 @@ shapes; k-means twice on the card (bitwise equal), the HNSW family (two
 builds on the card give one graph, an integer-data build equals the
 CPU's, and searches on the card equal the CPU's on the same graph: flat,
 SQ8, PQ and two-level storage, binary HNSW, BIVF_HNSW and IVF_HNSW with
-K2). The entry points' default device is checked everywhere. This file imports no jax, so it also runs where jax is not
+K2); four shards of a ShardedIVF on one card against the CPU, data-
+parallel k-means on the card (bitwise repeatable) and the C API's demo on
+the card. The entry points' default device is checked everywhere. This file imports no jax, so it also runs where jax is not
 installed, without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -52,11 +54,13 @@ def test_entry_points_default_to_the_card():
     """Every entry point allocates on the card unless the caller passes
     device="cpu"; without a card the first allocation raises instead of
     falling back to the CPU."""
+    from auncel_tpu_torch.eval_harness import dist_bench
     from auncel_tpu_torch.index.binary import BinaryHNSWIndex
     for fn in (att.IVFFlatIndex.__init__, compute_interdis, kmeans,
                convert.ivf_arrays_from_numpy, convert.multirow_from_numpy,
                convert.traces_from_numpy, att.HNSWIndex.__init__,
-               BinaryHNSWIndex.__init__, convert.hnsw_from_numpy):
+               BinaryHNSWIndex.__init__, convert.hnsw_from_numpy,
+               convert.sharded_from_numpy, dist_bench.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     centers, _, _ = make_data()
     idx = att.IVFFlatIndex(D, NLIST)
@@ -1047,3 +1051,82 @@ def test_graph_quantizers_on_the_card_equal_the_cpu():
         for r, c in zip(*np.nonzero(ci != pi)):
             near = np.abs(pv[r] - pv[r, c]) <= 1e-5 * abs(pv[r, c]) + 1e-5
             assert ci[r, c] in pi[r][near] or c == K - 1, (r, c)
+
+
+def _sharded_pair(tmp_path):
+    """A 4-shard IVF built and profiled by the port on the CPU, saved, and
+    loaded twice from the directory: on the CPU, and with all four shards
+    on the one card (make_mesh's default devices)."""
+    from auncel_tpu_torch.data import make_clustered_dataset
+    from auncel_tpu_torch.parallel import ShardedIVF, make_mesh
+    ds = make_clustered_dataset(nb=16000, nq=40, d=32, n_clusters=64,
+                                seed=21)
+    s = ShardedIVF(ds.d, nlist=32, n_shards=4,
+                   mesh=make_mesh(4, devices=["cpu"]))
+    s.build(ds.xb)
+    s.train_profiles(ds.xq[:20], max_topk=50)
+    s.multipler = 8.0
+    s.save(str(tmp_path / "sharded"))
+    cpu = ShardedIVF.load(str(tmp_path / "sharded"),
+                          mesh=make_mesh(4, devices=["cpu"]))
+    card = ShardedIVF.load(str(tmp_path / "sharded"), mesh=make_mesh(4))
+    return ds, cpu, card
+
+
+@pytest.mark.cuda
+def test_sharded_on_one_card_matches_the_cpu(tmp_path):
+    """Four shards on one card (K2 in the fixed and padded searches, K1 in
+    the one-shot engine) against the same index on the CPU: equal ids and
+    n_scanned, distances within 1e-5."""
+    dev = _card()
+    ds, cpu, card = _sharded_pair(tmp_path)
+    assert {d for d in card.mesh.devices.flat} == {dev}
+    assert all(sh.arrays.db.is_cuda for sh in card.shards)
+    acc = np.full(40, 0.9, np.float32)
+
+    def same(a, b):
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_allclose(a[0], b[0], rtol=1e-5, atol=1e-5)
+        if len(a) > 2:
+            np.testing.assert_array_equal(a[2], b[2])
+    k1, k2 = rowscan_scores.launches, scan_scores.launches
+    for nprobe in (4, 32):
+        same(card.search(ds.xq, 10, nprobe), cpu.search(ds.xq, 10, nprobe))
+    same(card.search_bounded(ds.xq, acc, 10),
+         cpu.search_bounded(ds.xq, acc, 10))
+    assert scan_scores.launches > k2
+    for s in (cpu, card):
+        s.enable_multirow(64)
+    same(card.search_bounded(ds.xq, acc, 10),
+         cpu.search_bounded(ds.xq, acc, 10))
+    assert rowscan_scores.launches > k1
+
+
+@pytest.mark.cuda
+def test_dp_kmeans_on_the_card_is_bitwise_repeatable():
+    """Four shards of one card: two runs bitwise equal, within 1e-4 of the
+    same run on the CPU."""
+    from auncel_tpu_torch.parallel import dp_kmeans, make_mesh
+    _card()
+    x = np.random.RandomState(3).randn(65536, 32).astype(np.float32)
+    a = dp_kmeans(x, 256, make_mesh(4), niter=5)
+    b = dp_kmeans(x, 256, make_mesh(4), niter=5)
+    np.testing.assert_array_equal(a[0], b[0])
+    assert a[1] == b[1]
+    c = dp_kmeans(x, 256, make_mesh(4, devices=["cpu"]), niter=5)
+    np.testing.assert_allclose(a[0], c[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(a[1], c[1], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_c_api_demo_runs_on_the_card():
+    """The demo with AUNCEL_C_DEVICE=cuda returns the ids of the same
+    calls made in Python on the card."""
+    from test_torch_c_api import _toolchain_available, python_ids, run_demo
+    _card()
+    if not _toolchain_available():
+        pytest.skip("no C compiler / make / python3-config")
+    got = run_demo("cuda")
+    fixed, bounded = python_ids("cuda")
+    np.testing.assert_array_equal(got["fixed"], fixed)
+    np.testing.assert_array_equal(got["bounded"], bounded)
