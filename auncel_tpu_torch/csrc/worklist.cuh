@@ -32,20 +32,16 @@
 // widens exactly. The dots, the norms (stored, of the decoded vectors) and
 // the epilogue are the same for every codec.
 //
-// Product quantization (K2 only): db holds M uint8 codes a slot, and dim i
-// of a slot decodes to codebook[m][code[m]][i - m * dsub] (m = i / dsub,
-// dsub = d / M), a gather from the codebook that the scan stages in shared
-// memory (PQBook), so a decoded element is bitwise the plain version's.
-// codec_slot_bytes() knows no PQ width: the PQ launch sizes a slot by M, and
-// K1 refuses the codec.
+// Product quantization (K2 only): db holds M uint8 codes a slot. K2 does
+// not decode them: it sums a slot's M entries of per-query lookup tables
+// (csrc/scan_scores.cu). codec_slot_bytes() knows no PQ width: the PQ
+// launch sizes a slot by M, and K1 refuses the codec.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -168,61 +164,6 @@ struct SQ6 {
   }
 };
 
-// The PQ codebook a block staged in shared memory ([M][256][dsub] floats)
-// and its subspace width; unused by the other codecs.
-struct PQBook {
-  const float* cb;
-  int dsub;
-};
-
-struct PQ {
-  static constexpr bool kAffine = false;
-  __device__ static float load1(const unsigned char* x, int i,
-                                const PQBook& b) {
-    const int m = i / b.dsub;
-    return b.cb[(m * 256 + x[m]) * b.dsub + (i - m * b.dsub)];
-  }
-  // dims [4i, 4i + 4): one float4 of one codeword when dsub % 4 == 0 (the
-  // four dims then share a subspace and the codeword row is 16-byte
-  // aligned), else four gathers, which may span two subspaces
-  __device__ static float4 load4(const unsigned char* x, int i,
-                                 const PQBook& b) {
-    const int j = 4 * i;
-    if ((b.dsub & 3) == 0) {
-      const int m = j / b.dsub;
-      return *reinterpret_cast<const float4*>(
-          b.cb + (m * 256 + x[m]) * b.dsub + (j - m * b.dsub));
-    }
-    return make_float4(load1(x, j, b), load1(x, j + 1, b),
-                       load1(x, j + 2, b), load1(x, j + 3, b));
-  }
-};
-
-template <typename Codec>
-struct IsPQ : std::is_same<Codec, PQ> {};
-
-// Dims [4i, 4i + 4) / dim i of a staged slot, decoded by Codec.
-template <typename Codec>
-__device__ __forceinline__ float4 decode4(const unsigned char* x, int i,
-                                          float4 s, float4 b,
-                                          const PQBook& pq) {
-  if constexpr (IsPQ<Codec>::value) {
-    return PQ::load4(x, i, pq);
-  } else {
-    return Codec::load4(x, i, s, b);
-  }
-}
-
-template <typename Codec>
-__device__ __forceinline__ float decode1(const unsigned char* x, int i,
-                                         float s, float b, const PQBook& pq) {
-  if constexpr (IsPQ<Codec>::value) {
-    return PQ::load1(x, i, pq);
-  } else {
-    return Codec::load1(x, i, s, b);
-  }
-}
-
 struct Config {
   int tile;        // list slots per ring stage
   int chunk;       // entries (queries) per item
@@ -236,11 +177,9 @@ struct Config {
 
 // The tile, chunk, mode and item count for these shapes (slots of
 // slot_bytes bytes), with worklist items of item_tiles tiles (0: a whole
-// list each); without allow_direct every call takes the worklist. The
-// caller sets smem.
+// list each). The caller sets smem.
 Config make_config(int nlist, int cap, int d, int slot_bytes,
-                   long long n_work, int item_tiles,
-                   bool allow_direct = true) {
+                   long long n_work, int item_tiles) {
   Config c;
   // a multiple of 8 slots, at most 64, that lets the ring fit kRingBytes
   const long long fit = kRingBytes / ((long long)kStages * slot_bytes) / 8 * 8;
@@ -250,7 +189,7 @@ Config make_config(int nlist, int cap, int d, int slot_bytes,
   c.chunk = kMaxChunk;
   while (c.chunk > 4 && (long long)c.chunk * d * 4 > kQueryBytes)
     c.chunk >>= 1;
-  c.direct = allow_direct && n_work <= c.chunk;
+  c.direct = n_work <= c.chunk;
   if (item_tiles <= 0) item_tiles = (cap + c.tile - 1) / c.tile;
   c.span = c.tile * (c.direct ? kDirectTiles : item_tiles);
   c.smem = 0;
@@ -265,8 +204,9 @@ struct Params {
   const void* db;           // stored slots, slot_bytes each
   const float* sq_scale;    // [d] (SQ codecs; else null)
   const float* sq_bias;     // [d]
-  const float* pq_books;    // [M, 256, d / M] (PQ; else null)
+  const float* pq_books;    // [M, d / M, 256]: PQ's codebook transposed
   const float* centroids;   // [nlist, d] (residual PQ; else null)
+  const unsigned char* qcodes;  // [n_work, M] (PQ's Hamming filter; else null)
   const float* db_sq;
   const int* vec_ids;
   const int* list_sizes;
@@ -276,6 +216,7 @@ struct Params {
   float* scores;
   int* ids;
   int n_work, n_slots, nlist, cap, d, is_l2;
+  int ht;           // the Hamming threshold (with qcodes)
   int tile, chunk, span, slot_bytes, stage_bytes;
   int n_fill;       // fill units: kFillRows rows each
   int direct_ub;    // direct mode: blocks below it take a span, above fill
@@ -397,8 +338,7 @@ template <typename Codec, bool kVec4, int kSlots>
 __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
                                           float* dots,
                                           const unsigned char* ring,
-                                          int n_live, int nq,
-                                          const PQBook& pq) {
+                                          int n_live, int nq) {
   constexpr int kQ = 32 / kSlots;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int d = p.d, w = p.slot_bytes;
@@ -423,7 +363,7 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
         float4 x[kSlots];
 #pragma unroll
         for (int j = 0; j < kSlots; ++j)
-          x[j] = has ? decode4<Codec>(xs + j * w, lane, sc, bi, pq) : zero;
+          x[j] = has ? Codec::load4(xs + j * w, lane, sc, bi) : zero;
         for (int qg = 0; qg < n_qg; ++qg) {
           float acc[32];
 #pragma unroll
@@ -469,7 +409,7 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
           v[k] = reinterpret_cast<const float4*>(qv[k])[i];
 #pragma unroll
         for (int j = 0; j < kSlots; ++j) {
-          const float4 x = decode4<Codec>(xs + j * w, i, sc, bi, pq);
+          const float4 x = Codec::load4(xs + j * w, i, sc, bi);
 #pragma unroll
           for (int k = 0; k < kQ; ++k) {
             float a = acc[j * kQ + k];
@@ -493,7 +433,7 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
         for (int k = 0; k < kQ; ++k) v[k] = qv[k][i];
 #pragma unroll
         for (int j = 0; j < kSlots; ++j) {
-          const float x = decode1<Codec>(xs + j * w, i, sc, bi, pq);
+          const float x = Codec::load1(xs + j * w, i, sc, bi);
 #pragma unroll
           for (int k = 0; k < kQ; ++k)
             acc[j * kQ + k] = fmaf(x, v[k], acc[j * kQ + k]);
@@ -507,19 +447,18 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
 }
 
 // The dots of a staged tile, the unit's shape following the chunk so that
-// few (slot, query) pairs are padding. `pq` is the PQ codec's codebook.
+// few (slot, query) pairs are padding.
 template <typename Codec, bool kVec4>
 __device__ __forceinline__ void tile_dots(const Params& p, const float* qs,
                                           float* dots,
                                           const unsigned char* ring,
-                                          int n_live, int nq,
-                                          const PQBook& pq = PQBook{}) {
+                                          int n_live, int nq) {
   if (nq == 1 && p.tile % 32 == 0)
-    dot_units<Codec, kVec4, 32>(p, qs, dots, ring, n_live, nq, pq);
+    dot_units<Codec, kVec4, 32>(p, qs, dots, ring, n_live, nq);
   else if (nq <= 2 && p.tile % 16 == 0)
-    dot_units<Codec, kVec4, 16>(p, qs, dots, ring, n_live, nq, pq);
+    dot_units<Codec, kVec4, 16>(p, qs, dots, ring, n_live, nq);
   else
-    dot_units<Codec, kVec4, 8>(p, qs, dots, ring, n_live, nq, pq);
+    dot_units<Codec, kVec4, 8>(p, qs, dots, ring, n_live, nq);
 }
 
 // A block's share of the work. scan(l, c_begin, c_end, nq, ents) scores

@@ -30,10 +30,10 @@ float32 query's. PQ storage: uint8 ``[nlist, cap, M]`` codes with
 ``pq_residual`` the codes approximate ``x - centroid[list]`` and the
 scores carry the probed list's centroid (L2 ``max(||q - c_l||^2 + db_sq -
 2 <r, q - c_l>, 0)``, IP ``<c_l, q> + <r, q>``), as the JAX package's
-residual branches write them. K2 decodes PQ codes in its ring; the
-multi-row layout takes no PQ storage (``index/multirow.py``). The
-polysemous Hamming filter (``qcodes``/``ht`` of ``scan_probe_range``,
-``ivf_search_fixed_ht``) masks K2's output.
+residual branches write them. K2 scores PQ codes by per-(query, list)
+lookup tables; the multi-row layout takes no PQ storage
+(``index/multirow.py``). The polysemous Hamming filter (``qcodes``/``ht``
+of ``scan_probe_range``, ``ivf_search_fixed_ht``) runs inside K2.
 
 The dense passes (``masked_full_scan``, ``dense_stage_snapshots``) read the
 row corpus once for a whole batch with one fp32 matmul per block, masked by
@@ -50,7 +50,8 @@ from auncel_tpu_torch.ops.distance import pairwise_scores, sqnorms
 from auncel_tpu_torch.ops.pq import PQCodebooks, encode_pq
 from auncel_tpu_torch.ops.topk import init_topk, topk_scores
 from auncel_tpu_torch.kernels.rowscan import rowscan_scores
-from auncel_tpu_torch.kernels.scan_scores import decode_slots, scan_scores
+from auncel_tpu_torch.kernels.scan_scores import (
+    decode_slots, popcount8, scan_scores)
 
 
 class IVFArrays(NamedTuple):
@@ -168,23 +169,25 @@ def scan_probe_range(
     ``start`` lets each query advance its own frontier. Padded lists are
     scored by K2 and the rows of a ``RowArrays`` by K1; neither reads a
     probe slot past the query's limit (passed as list id -1). ``qcodes``
-    and ``ht`` apply the polysemous filter on PQ storage: a stored code more
-    than ``ht`` bits from the query's code for that probe slot is dropped
-    (the worst value and id -1), as the JAX package masks it
-    (``auncel_tpu/index/scan.py:260-266``)."""
+    and ``ht`` apply the polysemous filter on PQ storage, inside K2: a
+    stored code more than ``ht`` bits from the query's code for that probe
+    slot is dropped (the worst value and id -1), as the JAX package masks
+    it (``auncel_tpu/index/scan.py:260-266``)."""
     check_storage(arrays)
     k = vals.shape[-1]
     B = q.shape[0]
     if width <= 0 or B == 0:
         return vals, ids
     rows = isinstance(arrays, RowArrays)
+    if rows and qcodes is not None:
+        raise ValueError("the polysemous filter takes PQ codes, which the "
+                         "multi-row layout does not hold")
     C = probe_chunk or pick_probe_chunk(B, arrays.cap, width)
     n_slots_avail = probe_lists.shape[1]
     dev = q.device
     q = arrays.scan_query(q).contiguous()
     start = torch.as_tensor(start, dtype=torch.int32, device=dev).expand(B)
     codec = arrays.codec_kwargs()
-    worst = worst_value(metric)
     for c0 in range(0, width, C):
         Cc = min(C, width - c0)
         iks = start[:, None] + c0 + torch.arange(Cc, dtype=torch.int32,
@@ -194,18 +197,14 @@ def scan_probe_range(
         # a probe slot past its query's limit is list (row) -1: read by
         # neither kernel
         lists = torch.where(iks < limit[:, None], lists, -1).to(torch.int32)
+        if qcodes is not None:
+            codec["qcodes"] = torch.gather(
+                qcodes, 1, safe_iks[:, :, None].expand(
+                    -1, -1, qcodes.shape[2])).contiguous()    # [B, Cc, M]
+            codec["ht"] = int(ht)
         scores, sub_ids = (rowscan_scores if rows else scan_scores)(
             arrays.db, arrays.db_sq, arrays.vec_ids, arrays.list_sizes, q,
             q_sq, lists, metric, **codec)
-        if qcodes is not None:
-            qc = torch.gather(qcodes, 1, safe_iks[:, :, None].expand(
-                -1, -1, qcodes.shape[2]))                     # [B, Cc, M]
-            raw = arrays.db[lists.clamp_min(0).long()]        # [B, Cc, cap, M]
-            ham = popcount8(raw ^ qc[:, :, None, :]).sum(
-                -1, dtype=torch.int32).reshape(B, -1)
-            keep = ham <= ht
-            scores = torch.where(keep, scores, worst)
-            sub_ids = torch.where(keep, sub_ids, -1)
         vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
                                 torch.cat([ids, sub_ids], dim=-1), k, metric)
     return vals, ids
@@ -410,14 +409,6 @@ def ivf_search_fixed(arrays: IVFArrays, q: torch.Tensor, k: int,
                            nprobe, max_codes)
     return scan_probe_range(arrays, q, q_sq, cids, vals, ids, limit, 0,
                             nprobe, metric)
-
-
-def popcount8(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each uint8 (the JAX package's ``POPCOUNT8`` table), by
-    three masked adds on the bytes themselves."""
-    x = x - ((x >> 1) & 0x55)
-    x = (x & 0x33) + ((x >> 2) & 0x33)
-    return (x + (x >> 4)) & 0x0F
 
 
 def ivf_search_fixed_ht(arrays: IVFArrays, q: torch.Tensor, k: int,

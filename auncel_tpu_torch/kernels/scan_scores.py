@@ -32,9 +32,16 @@ Product quantization: uint8 ``db [nlist, cap, M]`` with ``pq_codebooks
 codes are residuals of the list's centroid ``c_l`` (IVFPQ by residual),
 and the score of a slot ``r`` is the JAX package's (``auncel_tpu/index/
 scan.py:226-247``): L2 ``max((||q - c_l||^2 + db_sq) - 2 <r, q - c_l>, 0)``,
-IP ``<c_l, q> + <r, q>``. The kernel holds the codebook in shared memory,
-so it takes ``d <= MAX_D_PQ``; the multi-row layout (K1) takes no PQ
-codes.
+IP ``<c_l, q> + <r, q>``. The kernel does not decode: it builds each
+(query, list) pair's ADC lookup table ``[M, 256]`` of partial dots in
+shared memory and sums a slot's M entries, so it takes an M whose one
+table and ring fit a block (``check_pq_fits``); the multi-row layout (K1)
+takes no PQ codes. ``qcodes [B, n_slots, M]`` uint8 (the query's code for
+each probe slot) with an int ``ht`` apply the polysemous filter of the
+JAX package's scan (``auncel_tpu/index/scan.py:259-266``): a live slot
+whose code is more than ``ht`` bits from its probe's query code is dead.
+The kernel computes the Hamming distance from the staged codes and skips
+the lookups of the slots it drops.
 
 ``scan_scores`` runs the kernel for CUDA tensors and the plain version,
 ``scan_scores_ref``, for CPU tensors. A CUDA tensor never falls back: the
@@ -47,6 +54,7 @@ over the multi-row layout's rows and shares the checks and the launch.
 
 import ctypes
 import functools
+import numbers
 
 import torch
 
@@ -58,9 +66,9 @@ from auncel_tpu_torch.types import Metric, worst_value
 # a block's shared memory holds at least two 8-slot tiles of the list and
 # four query rows (80 * d bytes and change) within the card's 227 KB
 MAX_D = 2880
-# PQ: the codebook (1 KB a dimension) beside the ring, the queries and the
-# dots fits the 227 KB for every M <= d up to this width
-MAX_D_PQ = 172
+# a block's dynamic shared memory on sm_90 (227 KB), less the 1 KB the
+# launch checks keep for the kernels' static variables
+MAX_SMEM = 232448 - 1024
 MAX_CAP = 2**31 - 1       # slot indices are int32
 MAX_WORK = 2**31 - 1      # entry indices are int32
 # the plain version decodes and contracts this many elements at a time
@@ -68,6 +76,43 @@ REF_CHUNK = 1 << 26
 
 # the kernels' codec ids (csrc/worklist.cuh)
 CODECS = {"f32": 0, "bf16": 1, "sq8": 2, "sq4": 3, "sq6": 4, "pq": 5}
+
+
+def pq_shared_bytes(M: int, d: int) -> int:
+    """Shared memory of a K2 block on PQ codes with one query's table:
+    the table (M x 256 floats), two ring tiles of 256 slots' codes with
+    their norms and ids, the query's code and the query, q_sq and row
+    (``csrc/scan_scores.cu``'s ``pq_smem_bytes`` at chunk 1)."""
+    stage = (256 * M + 15) // 16 * 16
+    return (M * 1024 + 2 * stage + (M + 15) // 16 * 16
+            + 4 * (d + 2 * 2 * 256 + 2))
+
+
+def max_pq_m(d: int) -> int:
+    """The largest M whose table and ring fit a block at width d (0 when
+    none does)."""
+    M = 256
+    while M > 0 and pq_shared_bytes(M, d) > MAX_SMEM:
+        M -= 1
+    return M
+
+
+def check_pq_fits(name: str, M: int, d: int) -> None:
+    """Raise ValueError unless K2 can hold PQ codes of M bytes at width d:
+    one query's lookup table and the ring within a block's shared memory."""
+    if pq_shared_bytes(M, d) > MAX_SMEM:
+        raise ValueError(
+            f"{name} holds one query's PQ lookup table (M x 256 floats) and "
+            f"two tiles of 256 codes in shared memory: M <= {max_pq_m(d)} "
+            f"at d={d}, got M={M}")
+
+
+def popcount8(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each uint8 (the JAX package's ``POPCOUNT8`` table), by
+    three masked adds on the bytes themselves."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F
 
 
 def decode_slots(sub, d: int, sq_scale=None, sq_bias=None,
@@ -83,10 +128,12 @@ def decode_slots(sub, d: int, sq_scale=None, sq_bias=None,
 
 def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
                     metric: Metric, sq_scale=None, sq_bias=None,
-                    pq_codebooks=None, centroids=None):
+                    pq_codebooks=None, centroids=None, qcodes=None,
+                    ht=None):
     """Plain PyTorch version: the gather, decode, dot and masks of the XLA
-    scan, over the active (query, probe slot) entries only (an inactive
-    one is all padding), a bounded number at a time."""
+    scan (with ``qcodes``, the polysemous filter's ``ham <= ht``), over the
+    active (query, probe slot) entries only (an inactive one is all
+    padding), a bounded number at a time."""
     B, S = lists.shape
     nlist, cap, _ = db.shape
     d = q.shape[1]
@@ -123,6 +170,11 @@ def scan_scores_ref(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
                 sc = dots
         ids = vec_ids[sel]
         live = (slot < list_sizes[sel][:, None]) & (ids >= 0)
+        if qcodes is not None:
+            qc = qcodes.reshape(B * S, -1)[e]
+            ham = popcount8(db[sel] ^ qc[:, None, :]).sum(
+                -1, dtype=torch.int32)
+            live &= ham <= ht
         scores[e] = torch.where(live, sc, worst_value(metric))
         sub_ids[e] = torch.where(live, ids, -1)
     return scores.reshape(B, S * cap), sub_ids.reshape(B, S * cap)
@@ -180,9 +232,29 @@ def scan_codec(name: str, db: torch.Tensor, d: int, sq_scale, sq_bias,
     return CODECS[kind]
 
 
+def check_filter(name: str, codec: int, db, lists, qcodes, ht) -> None:
+    """Check the polysemous filter's arguments: ``qcodes [B, n_slots, M]``
+    uint8 with an int ``ht``, on PQ codes only (as the JAX package's scan
+    takes them)."""
+    if qcodes is None:
+        if ht is not None:
+            raise ValueError(f"{name}: ht goes with qcodes")
+        return
+    if codec != CODECS["pq"]:
+        raise ValueError(f"{name}: the polysemous filter (qcodes) takes PQ "
+                         f"codes only")
+    want = tuple(lists.shape) + (db.shape[-1],)
+    if qcodes.dtype != torch.uint8 or tuple(qcodes.shape) != want:
+        raise ValueError(f"{name} takes uint8 qcodes {list(want)} [B, "
+                         f"n_slots, M], got {qcodes.dtype} "
+                         f"{tuple(qcodes.shape)}")
+    if isinstance(ht, bool) or not isinstance(ht, numbers.Integral):
+        raise TypeError(f"{name}: qcodes need an int ht, got {ht!r}")
+
+
 def check_scan_args(name: str, args: tuple, metric, sq_scale=None,
-                    sq_bias=None, pq_codebooks=None, centroids=None
-                    ) -> tuple:
+                    sq_bias=None, pq_codebooks=None, centroids=None,
+                    qcodes=None, ht=None) -> tuple:
     """Check the contract K2 and K1's ``rowscan_scores`` share (K1's lists
     are rows): (whether every tensor lies on the CPU, where the plain
     version runs, or else on one CUDA device; the codec id). Raises
@@ -207,10 +279,11 @@ def check_scan_args(name: str, args: tuple, metric, sq_scale=None,
             f"{arg} {tuple(t.shape)}" for arg, t in zip(_ARG_NAMES, args)))
     codec = scan_codec(name, db, d, sq_scale, sq_bias, pq_codebooks,
                        centroids)
+    check_filter(name, codec, db, lists, qcodes, ht)
     if nlist == 0:
         raise ValueError(f"{name} needs at least one list")
     tensors = args + tuple(t for t in (sq_scale, sq_bias, pq_codebooks,
-                                       centroids) if t is not None)
+                                       centroids, qcodes) if t is not None)
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return True, codec
@@ -224,18 +297,18 @@ def check_scan_args(name: str, args: tuple, metric, sq_scale=None,
         raise ValueError(f"{name} supports 1 <= d <= {MAX_D}, cap <= "
                          f"{MAX_CAP} and B * n_slots <= {MAX_WORK}, got "
                          f"d={d} cap={cap} B*n_slots={B * S}")
-    if codec == CODECS["pq"] and d > MAX_D_PQ:
-        raise ValueError(f"{name} holds the PQ codebook in shared memory: "
-                         f"d <= MAX_D_PQ = {MAX_D_PQ}, got d={d}")
+    if codec == CODECS["pq"]:
+        check_pq_fits(name, db.shape[-1], d)
     return False, codec
 
 
 def launch_scan(name: str, lib, args: tuple, metric, codec: int = 0,
                 sq_scale=None, sq_bias=None, pq_codebooks=None,
-                centroids=None):
+                centroids=None, qcodes=None, ht=None):
     """Enqueue ``lib``'s ``{name}_launch`` (``{name}_pq_launch`` for PQ
-    codes), with its worklist scratch, on the args' CUDA device and current
-    stream: (scores, ids, whether a kernel was launched)."""
+    codes, with the filter's ``qcodes`` and ``ht``), with its worklist
+    scratch, on the args' CUDA device and current stream: (scores, ids,
+    whether a kernel was launched)."""
     db, db_sq, vec_ids, list_sizes, q, q_sq, lists = args
     nlist, cap, width = db.shape
     B, S = lists.shape
@@ -271,8 +344,9 @@ def launch_scan(name: str, lib, args: tuple, metric, codec: int = 0,
     tail = (db.device.index, torch.cuda.current_stream(db.device).cuda_stream)
     if pq:
         err = getattr(lib, f"{name}_pq_launch")(
-            *head, ptr(pq_codebooks), ptr(centroids), B * S, S, nlist, cap,
-            d, width, int(metric is Metric.L2), *tail)
+            *head, ptr(pq_codebooks), ptr(centroids), ptr(qcodes), B * S, S,
+            nlist, cap, d, width, int(metric is Metric.L2),
+            0 if ht is None else max(-1, min(int(ht), 8 * width)), *tail)
     else:
         err = getattr(lib, f"{name}_launch")(
             *head, ptr(sq_scale), ptr(sq_bias), B * S, S, nlist, cap, d,
@@ -288,17 +362,19 @@ def scan_scores(db: torch.Tensor, db_sq: torch.Tensor, vec_ids: torch.Tensor,
                 sq_scale: torch.Tensor | None = None,
                 sq_bias: torch.Tensor | None = None,
                 pq_codebooks: torch.Tensor | None = None,
-                centroids: torch.Tensor | None = None):
+                centroids: torch.Tensor | None = None,
+                qcodes: torch.Tensor | None = None, ht: int | None = None):
     """Padded lists ``db [nlist, cap, d]`` f32 or bf16 (or ``[nlist, cap,
     width]`` uint8 SQ codes with ``sq_scale`` and ``sq_bias`` [d] f32, or
     ``[nlist, cap, M]`` uint8 PQ codes with ``pq_codebooks`` [M, 256, d/M]
-    f32 and, for residual codes, ``centroids`` [nlist, d] f32) with their
-    ``db_sq``, ``vec_ids`` and ``list_sizes``, queries ``q [B, d]`` f32
-    with ``q_sq``, probes ``lists [B, n_slots]`` int32 (-1: inactive) ->
-    (scores ``[B, n_slots * cap]`` f32, ids ``[B, n_slots * cap]``
-    int32)."""
+    f32 and, for residual codes, ``centroids`` [nlist, d] f32; on PQ codes
+    ``qcodes [B, n_slots, M]`` uint8 and ``ht`` apply the polysemous
+    filter) with their ``db_sq``, ``vec_ids`` and ``list_sizes``, queries
+    ``q [B, d]`` f32 with ``q_sq``, probes ``lists [B, n_slots]`` int32
+    (-1: inactive) -> (scores ``[B, n_slots * cap]`` f32, ids ``[B,
+    n_slots * cap]`` int32)."""
     args = (db, db_sq, vec_ids, list_sizes, q, q_sq, lists)
-    codec_args = (sq_scale, sq_bias, pq_codebooks, centroids)
+    codec_args = (sq_scale, sq_bias, pq_codebooks, centroids, qcodes, ht)
     on_cpu, codec = check_scan_args("scan_scores", args, metric, *codec_args)
     if on_cpu:
         return scan_scores_ref(*args, metric, *codec_args)
@@ -330,10 +406,8 @@ def bind_scan(lib, name: str, pq: bool = False):
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
         fn.restype = ctypes.c_longlong
         fn = getattr(lib, f"{name}_pq_launch")
-        fn.argtypes = [ctypes.c_void_p] * 12 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 

@@ -8,7 +8,10 @@ rowscan_scores at the bench, one-shot tail-round and batch-1 worklists,
 timed in turns with the dots route it replaced (rowscan_dots and the score
 assembly as separate passes), K2 over the same rows and the plain version,
 and rowscan_dots alone; K1 and K2 on each storage codec (bf16, SQ8, SQ4,
-SQ6) at the bench shapes ([k1 CODEC], [k2 CODEC]); the bounded-search
+SQ6) at the bench shapes ([k1 CODEC], [k2 CODEC]); K2 on PQ codes at
+synthetic layouts of the recorded PQ calls ([k2 pq]: the [pq 10M] window's
+largest, batch 1, a training chunk, [2layer]'s call and d 256 / M 32),
+residual and plain, without and with the polysemous filter; the bounded-search
 main path on the multi-row layout (K1 in search, K2 in profile
 training): calibration with its
 measured dense crossover, the held-out window through the one-shot engine
@@ -114,10 +117,14 @@ then
                    the codes: profile training, calibration, the held-out
                    window (worst-case recall@10 >= 0.9 or the run fails)
                    and 200 batch-1 queries, fixed-nprobe search at nprobe
-                   32 without and with the polysemous filter, and K2
-                   against its plain version at calls recorded from this
-                   path (the window's largest, batch 1, a training
-                   chunk); unfiltered, its recall@10 by ids against the
+                   32 without and with the polysemous filter (inside K2;
+                   at ht 48 and 64 its ids and kept distances equal to
+                   the filter as a plain-torch mask on K2's output, or
+                   the run fails; the query codes' encode timed), and
+                   K2 against its plain version at calls recorded from
+                   this path (the window's largest, batch 1, a training
+                   chunk, the largest filtered call at ht 48 and 64);
+                   unfiltered, its recall@10 by ids against the
                    float ground truth is [pqr 10M]'s floor;
   [pqr 10M]        "IVF1024,PQ16+16" (IVFPQ re-ranked by a refinement PQ,
                    k_factor 4) on the same corpus and centroids: the stage
@@ -189,13 +196,14 @@ one two-phase and one single-phase run of the phase-B window.
     python3 chip_smoke.py --kernels
 
 builds and checks the kernels on synthetic inputs and on the 1M index's
-own arrays, prints their ``[k1]``/``[k1 dots]``/``[k2]`` (and codec) lines
-and stops: no serving path, no 10M phase, no JSON lines. It times
-whichever ``auncel_tpu_torch`` is first on ``sys.path``, so run from
-another tree's root with
+own arrays, prints their ``[k1]``/``[k1 dots]``/``[k2]`` (and codec and
+``[k2 pq]``) lines and stops: no serving path, no 10M phase, no JSON
+lines. It times whichever ``auncel_tpu_torch`` is first on ``sys.path``,
+so run from another tree's root with
 ``python3 -c "import runpy, sys; sys.argv = ['chip_smoke.py', '--kernels'];
 runpy.run_path('PATH/chip_smoke.py', run_name='__main__')"`` it times that
-tree's kernels on the same shapes.
+tree's kernels on the same shapes (a K2 without the fused filter takes the
+filter as a plain-torch mask after it).
 """
 
 import contextlib
@@ -277,9 +285,10 @@ def k2_work(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
     """What K2's inputs need: the live slots of each distinct probed list
     read once (the stored vector at its codec's width: 4d bytes for f32, d
     for SQ8, M for PQ; norm; id) with the list sizes, probes and queries;
-    for PQ the codebook once and, residual, the centroid row of each
-    distinct probed list once; scores and ids written for every slot. Also
-    the live bytes the kernel reads, once per (query, probe slot)."""
+    for PQ the codebook once, residual, the centroid row of each distinct
+    probed list once and, filtered, the query codes; scores and ids
+    written for every slot. Also the live bytes the kernel reads, once per
+    (query, probe slot)."""
     nlist, cap, width = db.shape
     d = q.shape[1]
     B, S = lists.shape
@@ -297,6 +306,8 @@ def k2_work(db, db_sq, vec_ids, list_sizes, q, q_sq, lists,
         n_bytes += cd["pq_codebooks"].numel() * 4
         if cd.get("centroids") is not None:
             n_bytes += distinct.numel() * d * 4
+        if cd.get("qcodes") is not None:
+            n_bytes += cd["qcodes"].numel()
     ms, by = bound(n_bytes, 2.0 * d * live_probed)
     return {"bound_ms": ms, "bound_by": by, "bound_bytes": n_bytes,
             "live_bytes": live_probed * slot_bytes + out_bytes}
@@ -322,6 +333,18 @@ K1_ROW_SHAPES = (("bench", 4608, 256, 128, 1024, 4),
 # and the scalar-load path
 K2_SHAPES = (("synthetic", 512, 1024, 128, 256, 5),
              ("scalar", 64, 300, 100, 33, 3))
+
+
+# (name, nlist, cap, mean list size, d, M, B, n_slots): K2 on PQ codes at
+# synthetic layouts of the recorded calls: the [pq 10M] cell's window's
+# largest call, a batch-1 call and a training chunk (IVF1024 over 10M x 96,
+# PQ16), the [2layer] call (IVF1024 over 1M x 128, PQ16), and d 256 / M 32
+# on that layout, a width the codebook in shared memory refused
+K2_PQ_SHAPES = (("10M window", 1024, 20448, 9766, 96, 16, 1000, 1),
+                ("10M batch 1", 1024, 20448, 9766, 96, 16, 1, 64),
+                ("10M training chunk", 1024, 20448, 9766, 96, 16, 100, 8),
+                ("2layer", 1024, 3859, 977, 128, 16, 1000, 4),
+                ("d 256 M 32", 1024, 3859, 977, 256, 32, 1000, 4))
 
 
 def k1_dots_check(device, card: str) -> dict:
@@ -492,17 +515,20 @@ def k1_check(device, card: str) -> dict:
 
 def k2_compare(name, args, metric, card: str, reps: int = 20,
                terms_tol: bool = False, codec: dict | None = None,
-               label: str = "k2") -> dict:
+               label: str = "k2", routes: tuple | None = None) -> dict:
     """K2 against its plain version on one input set; returns its numbers.
+    ``routes``: the (kernel, plain) pair to call instead of scan_scores
+    and scan_scores_ref (``filter_routes``).
     With ``terms_tol`` the L2 tolerance is 1e-5 of the score's terms
     (q_sq + db_sq) rather than of the score: on data of SIFT's scale a
     near neighbour's score is the difference of terms ~60x larger than it,
     and the two versions' dots differ in sum order (for residual PQ the
     terms are ||q - c_l||^2 + db_sq). ``codec``: the SQ range (sq_scale,
     sq_bias) or the PQ codebook (pq_codebooks, and centroids for residual
-    codes) of uint8 storage."""
+    codes, and qcodes and ht for the polysemous filter) of uint8 storage."""
     from auncel_tpu_torch.kernels.scan_scores import (
         scan_scores, scan_scores_ref)
+    scan_scores, scan_scores_ref = routes or (scan_scores, scan_scores_ref)
     cd = codec or {}
     got_s, got_i = scan_scores(*args, metric, **cd)
     want_s, want_i = scan_scores_ref(*args, metric, **cd)
@@ -599,6 +625,117 @@ def synthetic_padded(device, nlist, cap, d, B, n_slots, seed,
         lists[0, 0] = nlist + 3
     return (db, (db * db).sum(-1), ids.to(torch.int32), sizes, q,
             (q * q).sum(-1), lists)
+
+
+def pq_masked(scores, ids, db, lists, metric, qcodes, ht) -> tuple:
+    """The polysemous filter as a plain-torch mask on K2's output: each
+    probed list's codes gathered again and a slot more than ht bits from
+    its probe's query code set to the worst value and id -1 (the route
+    of index/scan.py's scan_probe_range before K2 took the filter)."""
+    from auncel_tpu_torch.index.scan import popcount8
+    from auncel_tpu_torch.types import worst_value
+    B = lists.shape[0]
+    raw = db[lists.clamp_min(0).long()]               # [B, S, cap, M]
+    ham = popcount8(raw ^ qcodes[:, :, None, :]).sum(
+        -1, dtype=torch.int32).reshape(B, -1)
+    keep = ham <= ht
+    return (torch.where(keep, scores, worst_value(metric)),
+            torch.where(keep, ids, -1))
+
+
+def filter_routes(kernel, plain) -> tuple:
+    """(kernel, plain) callables of K2's contract that take the filter's
+    qcodes and ht: the wrappers themselves where they take them, else (a
+    tree whose K2 predates the fused filter) each followed by pq_masked."""
+    import inspect
+    if "qcodes" in inspect.signature(kernel).parameters:
+        return kernel, plain
+
+    def masked(fn):
+        def run(*args, qcodes=None, ht=None, **kw):
+            out = fn(*args, **kw)
+            if qcodes is None:
+                return out
+            return pq_masked(*out, args[0], args[6], args[7], qcodes, ht)
+        return run
+    return masked(kernel), masked(plain)
+
+
+def synthetic_pq(device, nlist, cap, mean, d, M, B, n_slots, seed) -> tuple:
+    """A padded layout of PQ codes: list sizes uniform in [0, 2 * mean]
+    (at most cap), random codes, ids by slot and -1 past the size, a
+    codebook and centroids ~ N(0, 1/d), db_sq the decoded norms (zero at
+    dead slots); queries ~ N(0, 1/d), each probing n_slots distinct lists;
+    random query codes for the filter. Returns (args, codebook, centroids,
+    query codes)."""
+    from auncel_tpu_torch.ops.pq import PQCodebooks, decode_pq
+    gen = torch.Generator(device=device).manual_seed(seed)
+    s = d ** -0.5
+    sizes = torch.randint(0, min(cap, 2 * mean) + 1, (nlist,), generator=gen,
+                          device=device, dtype=torch.int32)
+    live = torch.arange(cap, device=device)[None, :] < sizes[:, None]
+    ids = torch.where(live, torch.arange(nlist * cap, device=device,
+                                         dtype=torch.int32).reshape(nlist,
+                                                                    cap), -1)
+    codes = torch.randint(0, 256, (nlist, cap, M), generator=gen,
+                          device=device, dtype=torch.uint8)
+    books = torch.randn((M, 256, d // M), generator=gen, device=device) * s
+    cents = torch.randn((nlist, d), generator=gen, device=device) * s
+    db_sq = torch.zeros((nlist, cap), device=device)
+    for l0 in range(0, nlist, 32):
+        x = decode_pq(PQCodebooks(books), codes[l0:l0 + 32])
+        db_sq[l0:l0 + 32] = torch.where(live[l0:l0 + 32], (x * x).sum(-1),
+                                        0.0)
+    del x
+    q = torch.randn((B, d), generator=gen, device=device) * s
+    lists = torch.argsort(torch.rand((B, nlist), generator=gen,
+                                     device=device), dim=1)[:, :n_slots]
+    qcodes = torch.randint(0, 256, (B, n_slots, M), generator=gen,
+                           device=device, dtype=torch.uint8)
+    args = (codes, db_sq, ids.to(torch.int32), sizes, q, (q * q).sum(-1),
+            lists.to(torch.int32).contiguous())
+    return args, books, cents, qcodes
+
+
+def pq_check(device, card: str) -> dict:
+    """K2 on PQ codes at K2_PQ_SHAPES, residual and plain, without and
+    with the polysemous filter (random query codes at ht 4M, about half
+    the codes kept), each against its plain version within 1e-5 of the
+    score's terms: the [k2 pq] lines. Run from another tree's root (the
+    docstring) it times that tree's K2: one that predates the fused filter
+    takes it as K2 then pq_masked, and a width that K2 refuses is reported
+    so. A K2 with the fused filter refuses nothing here: its refusal fails
+    the run. Returns the numbers by (shape, residual, filtered)."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.kernels.scan_scores import (
+        scan_scores, scan_scores_ref)
+    routes = filter_routes(scan_scores, scan_scores_ref)
+    fused = routes[0] is scan_scores
+    out = {}
+    for name, nlist, cap, mean, d, M, B, S in K2_PQ_SHAPES:
+        args, books, cents, qcodes = synthetic_pq(device, nlist, cap, mean,
+                                                  d, M, B, S, seed=4)
+        for residual in (True, False):
+            for filt in (False, True):
+                cd = {"pq_codebooks": books,
+                      "centroids": cents if residual else None}
+                if filt:
+                    cd.update(qcodes=qcodes, ht=4 * M)
+                what = (f"{name}, PQ{M} {'residual' if residual else 'plain'}"
+                        + (f", filter ht={4 * M}" if filt else ""))
+                try:
+                    out[(name, residual, filt)] = k2_compare(
+                        what, args, Metric.L2, card,
+                        reps=200 if B * S <= 64 else 10, terms_tol=True,
+                        codec=cd, label="k2 pq", routes=routes)
+                except ValueError as e:
+                    if fused:
+                        raise
+                    log(f"[k2 pq] {what}: refused by this tree's K2 ({e}) "
+                        f"[{card}]")
+        del args, books, cents, qcodes
+        torch.cuda.empty_cache()
+    return out
 
 
 def k2_check(device, card: str) -> None:
@@ -2438,6 +2575,7 @@ NB10M, D10M, NQ10M = 10_000_000, 96, 10_000
 PROFILE10M, CAL10M, START10M = 1000, 2000, 3000
 N_LATENCY10M = 200
 FIXED_NPROBE10M, MAX_CODES10M = 32, 30_000
+FIXED_REPS10M = 5       # [pq 10M fixed]: each setting's least of 5 calls
 
 
 def build_10m(card: str) -> dict:
@@ -2727,16 +2865,21 @@ def pq_10m_phase(corpus: dict, card: str, profile_dir: str | None,
     with uncounted():
         kernels = kernels_pq10m(es, xq, card)
     return {"launches": launches, "kernels": kernels,
+            "filter_launches": fixed["filter"],
             "min_recall": window["min_recall"], "recall_ids": rec_ids}
 
 
 def fixed_pq10m(idx, xq, gt_D, card: str, gt_ids: np.ndarray) -> tuple:
     """Fixed-nprobe search of the held-out queries at nprobe 32, then with
-    the polysemous filter at each PQ_HT10M (the last keeps every code, so
-    its ids equal the unfiltered search's); recall@10 against the ground
-    truth over the codes (and, unfiltered, by ids against ``gt_ids``, the
-    float ground truth) and the time of each. Returns the launches and the
-    unfiltered recall by ids."""
+    the polysemous filter (inside K2) at each PQ_HT10M (the last keeps
+    every code, so its ids equal the unfiltered search's), each below
+    128 bits held to the same search with the filter as a plain-torch
+    mask on K2's output (pq_masked; equal ids and kept distances, or the
+    run fails); recall@10 against the ground truth over the codes (and,
+    unfiltered, by ids against ``gt_ids``, the float ground truth) and
+    the least time of FIXED_REPS10M calls of each; then the query codes'
+    encode alone. Returns the launches (the filtered
+    searches' apart, under "filter") and the unfiltered recall by ids."""
     from auncel_tpu_torch import Metric
     from auncel_tpu_torch.autotune import recall_counts
     q = xq[START10M:START10M + N_TEST_Q]
@@ -2745,8 +2888,21 @@ def fixed_pq10m(idx, xq, gt_D, card: str, gt_ids: np.ndarray) -> tuple:
 
     def run():
         (Dq, Iq), t = synced(lambda: idx.search(q, K, nprobe=nprobe))
+        for _ in range(FIXED_REPS10M - 1):
+            t = min(t, synced(lambda: idx.search(q, K, nprobe=nprobe))[1])
         cnt = recall_counts(Dq, gt, K, Metric.L2)
         return Dq, Iq, t, cnt
+
+    seen = {"live": 0, "kept": 0}
+
+    def masked(real, *args, qcodes=None, ht=None, **kw):
+        out = real(*args, **kw)
+        if qcodes is None:
+            return out
+        out_m = pq_masked(*out, args[0], args[6], args[7], qcodes, ht)
+        seen["live"] += int((out[1] >= 0).sum())
+        seen["kept"] += int((out_m[1] >= 0).sum())
+        return out_m
 
     (D0, I0, t0, c0), n = counted(run)
     check(D0.shape == (N_TEST_Q, K) and np.isfinite(D0).all(),
@@ -2756,11 +2912,13 @@ def fixed_pq10m(idx, xq, gt_D, card: str, gt_ids: np.ndarray) -> tuple:
         f"recall@{K} worst {c0.min() / K:.3f} mean {c0.mean() / K:.4f}; by "
         f"ids against the float ground truth {rec_ids:.4f} [{card}]")
     total = dict(n)
+    total["filter"] = 0
     for ht in PQ_HT10M:
         idx.polysemous_ht = ht
         (Dh, Ih, th, ch), n = counted(run)
         for k, v in n.items():
             total[k] += v
+        total["filter"] += n["scan_scores"]
         kept = Ih >= 0
         check(np.isfinite(Dh[kept]).all() and (~np.isfinite(Dh[~kept])).all(),
               f"PQ ht={ht}: results")
@@ -2768,42 +2926,99 @@ def fixed_pq10m(idx, xq, gt_D, card: str, gt_ids: np.ndarray) -> tuple:
             check(np.array_equal(Ih, I0) and bool(
                 (np.abs(Dh - D0) <= 1e-5 * np.abs(D0) + 1e-5).all()),
                 "the filter at every bit differs from the unfiltered search")
-        log(f"[pq 10M fixed] polysemous ht={ht}: {th * 1e3:.2f} ms, "
-            f"recall@{K} worst {ch.min() / K:.3f} mean {ch.mean() / K:.4f}, "
-            f"results kept {kept.mean():.4f} [{card}]")
+        mask = ""
+        if ht < 8 * PQ_M10M:
+            seen.update(live=0, kept=0)
+            with uncounted(), scans_through(masked, "scan_scores"):
+                Dm, Im, tm, _ = run()
+            check(np.array_equal(Ih, Im),
+                  f"PQ ht={ht}: the fused filter's ids differ from the "
+                  f"plain mask's")
+            # a kept slot's score is summed as without the filter
+            check(np.array_equal(np.where(Im >= 0, Dh, 0),
+                                 np.where(Im >= 0, Dm, 0)),
+                  f"PQ ht={ht}: the fused filter's distances differ from "
+                  f"the plain mask's")
+            mask = (f"; the filter as a plain-torch mask on K2's output "
+                    f"{tm * 1e3:.2f} ms, equal ids and distances, probed "
+                    f"codes kept {seen['kept'] / max(seen['live'], 1):.4f}")
+        log(f"[pq 10M fixed] polysemous ht={ht}: {th * 1e3:.2f} ms "
+            f"({th / t0:.3f}x the unfiltered), recall@{K} worst "
+            f"{ch.min() / K:.3f} mean {ch.mean() / K:.4f}, results kept "
+            f"{kept.mean():.4f}{mask} [{card}]")
     idx.polysemous_ht = 0
+    log(f"[pq 10M fixed] the filter's query codes alone ({N_TEST_Q} x "
+        f"{nprobe} encodes): {encode_ms(idx, q, nprobe)} [{card}]")
     return total, rec_ids
+
+
+def encode_ms(idx, q, nprobe: int) -> str:
+    """The host and device time of the filter's query codes at nprobe (the
+    encode of ivf_search_fixed_ht: each query's residual to each probed
+    centroid, or the query itself for plain PQ), the least of 5 calls."""
+    from auncel_tpu_torch.index.scan import coarse_rank
+    from auncel_tpu_torch.ops.pq import PQCodebooks, encode_pq
+    a = idx.arrays
+    qt = torch.as_tensor(q, device=a.db.device)
+    _, cids = coarse_rank(a, qt, idx.metric)
+    lists = cids[:, :nprobe].long()
+    pq = PQCodebooks(a.pq_codebooks)
+
+    def encode():
+        t = (qt[:, None, :] - a.centroids[lists] if a.pq_residual
+             else qt[:, None, :].expand(-1, nprobe, -1))
+        return encode_pq(pq, t.reshape(-1, qt.shape[1]))
+    host = min(synced(encode)[1] for _ in range(5)) * 1e3
+    dev = device_ms(encode, 5)
+    return (f"{host:.3f} ms, device time a call "
+            + ("not measured" if dev is None else f"{dev:.3f} ms"))
 
 
 def kernels_pq10m(es, xq, card: str) -> dict:
     """K2 on the PQ codes at calls recorded from the [pq 10M] path: the
-    held-out window's largest, a batch-1 search's largest and a profile-
-    training chunk, each against its plain version within 1e-5 of
-    ||q - c_l||^2 + db_sq. Returns the window call's numbers (the kernels
-    line's entry), with the others under "batch1" and "train"."""
+    held-out window's largest, a batch-1 search's largest, a profile-
+    training chunk and, from [pq 10M fixed]'s search with the polysemous
+    filter at each PQ_HT10M below 8M bits, the largest filtered call (its
+    query codes and ht passed to both versions), each against its plain
+    version within 1e-5 of ||q - c_l||^2 + db_sq. Returns the window
+    call's numbers (the kernels line's entry), with the others under
+    "batch1", "train" and ("filter", ht)."""
     from auncel_tpu_torch.profile.trainer import train_profile
     idx = es.index
+    q = xq[START10M:START10M + N_TEST_Q]
 
     def largest(calls):
         return max(calls, key=lambda c: int((c[1][6] >= 0).sum()))
 
-    out = {}
-    for key, label, fn in (
-            ("window", "10M window",
-             lambda: es.search(START10M, N_TEST_Q)),
+    def filtered(ht):
+        idx.polysemous_ht = ht
+        try:
+            idx.search(q, K, nprobe=FIXED_NPROBE10M)
+        finally:
+            idx.polysemous_ht = 0
+
+    runs = [("window", "10M window", lambda: es.search(START10M, N_TEST_Q)),
             ("batch1", "10M batch 1", lambda: es.search(START10M, 1)),
             ("train", "10M training chunk",
              lambda: train_profile(idx.arrays, xq[:100], es.gt_D[:100],
-                                   MAX_TOPK, idx.metric, n_batches=1))):
+                                   MAX_TOPK, idx.metric, n_batches=1))]
+    runs += [(("filter", ht), f"10M fixed, filter ht={ht}",
+              lambda ht=ht: filtered(ht))
+             for ht in PQ_HT10M if ht < 8 * PQ_M10M]
+    out = {}
+    for key, label, fn in runs:
         calls = record_row_scans(fn, "scan_scores")
         stage, args, metric, kw = largest(calls)
+        check(key[0] != "filter" or kw.get("qcodes") is not None,
+              f"{label}: K2 was not given the query codes")
         out[key] = k2_compare(
             f"{label}, the largest of {len(calls)} calls (B x n_slots "
             f"{tuple(args[6].shape)})", args, metric, card,
             reps=200 if key == "batch1" else 10, terms_tol=True, codec=kw,
             label="k2 pq")
+        del calls, args, kw
         torch.cuda.empty_cache()
-    return {**out["window"], "batch1": out["batch1"], "train": out["train"]}
+    return {**out.pop("window"), **out}
 
 
 # [pqr 10M]: IVFPQ with the refinement PQ re-rank (the reference's
@@ -3517,6 +3732,7 @@ def main() -> int:
     k1_dots = k1_dots_check(device, card)
     k2_check(device, card)
     codecs = codec_check(device, card)
+    pq_lines = pq_check(device, card)
     corpus = build_corpus(card)
     if "--kernels" in sys.argv:
         kernels_on_index(corpus, device, card)
@@ -3657,6 +3873,17 @@ def main() -> int:
         {"name": "scan_scores sharded", "route": "cuda", "source": k2_src,
          "replaces": k2_tpu, "launches": sh["launches"]["scan_scores"],
          "library_ms": None, **numbers(sh["kernels"]["scan_scores"])}]
+    # K2's other PQ instances: filtered, launched by [pq 10M fixed] at each
+    # Hamming threshold, with the numbers of its largest call at ht 64;
+    # d 256 / M 32 at its synthetic layout, in the comparisons only
+    kernels.append({"name": "scan_scores pq filter", "route": "cuda",
+                    "source": k2_src, "replaces": k2_tpu,
+                    "launches": pq["filter_launches"], "library_ms": None,
+                    **numbers(pq["kernels"][("filter", PQ_HT10M[1])])})
+    kernels.append({"name": "scan_scores pq d256", "route": "cuda",
+                    "source": k2_src, "replaces": k2_tpu, "launches": 0,
+                    "library_ms": None,
+                    **numbers(pq_lines[("d 256 M 32", True, False)])})
     # the other codecs run only in the comparisons (no main-path launch)
     for (name, codec), res in codecs.items():
         if codec == "sq8":

@@ -2,7 +2,8 @@
 main path, rowscan_dots beside it) and K2 against their plain versions, on
 every storage codec too (float32, bf16, SQ8, SQ4, SQ6, at widths whose
 slots are and are not a multiple of 16 bytes; K2 on PQ codes, residual and
-plain, at dsub 2, 4 and 6), and the bounded-search slices (the multi-row
+plain, at dsub 2, 4 and 6, at d 256 / M 32 and d 192 / M 64, without and
+with the polysemous filter), and the bounded-search slices (the multi-row
 path, on float32 and SQ8 storage, and the padded path, on float32 and PQ
 storage) on the card against the same slices on the CPU, where the
 kernels' plain versions run; K2 on a block batch paged from an on-disk
@@ -35,7 +36,7 @@ from auncel_tpu_torch.index.ivf import compute_interdis
 from auncel_tpu_torch.kernels.rowscan import (
     rowscan_dots, rowscan_dots_ref, rowscan_scores, rowscan_scores_ref)
 from auncel_tpu_torch.kernels.scan_scores import (
-    MAX_D_PQ, scan_scores, scan_scores_ref)
+    max_pq_m, scan_scores, scan_scores_ref)
 from auncel_tpu_torch.ops.kmeans import kmeans
 from auncel_tpu_torch.ops.pq import PQCodebooks, decode_pq
 from auncel_tpu_torch.ops.sq import sq_decode_dev
@@ -490,29 +491,44 @@ def pq_terms(args, codec, metric):
     return t.reshape(B, S * db.shape[1])
 
 
-# (d, M): dsub 2, 4 and 6 at d 96, and dsub 6 at d 18 (d % 4 != 0: the
-# scalar dots and the byte copies of 3-byte slots)
-PQ_CASES = [(d, M, res) for d, M in ((96, 48), (96, 24), (96, 16), (18, 3))
+# (d, M): dsub 2, 4 and 6 at d 96, dsub 6 at d 18 (M % 4 != 0: the codes
+# read byte by byte, the byte copies of 3-byte slots), and the widths the
+# codebook in shared memory refused before the lookup tables: d 256 / M 32
+# (two tables a chunk) and d 192 / M 64 (one)
+PQ_CASES = [(d, M, res) for d, M in ((96, 48), (96, 24), (96, 16), (18, 3),
+                                     (256, 32), (192, 64))
             for res in (True, False)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ht", [None, "half", "all"])
 @pytest.mark.parametrize("d, M, residual", PQ_CASES)
-def test_k2_pq_matches_plain_version(d, M, residual):
+def test_k2_pq_matches_plain_version(d, M, residual, ht):
     """K2 on PQ codes against its plain version: ids equal, scores within
     1e-5 of their terms, on the worklist with inactive entries, ragged
     sizes and out-of-range ids; every query on one list longer than a tile
-    (more than a chunk of entries); batch 1; and every probe dead."""
+    (more entries than a chunk's tables: the chunk split); batch 1 on short
+    lists and on lists cut into spans; and every probe dead. Without the
+    polysemous filter, and with it at ht 4M (random query codes: about
+    half the codes kept) and 8M (every code kept); a kept slot's score is
+    bitwise the unfiltered kernel's."""
     dev = _card()
     for nlist, cap, B, n_slots, lists in ((40, 200, 64, 6, None),
-                                          (16, 300, 100, 2, "one"),
+                                          (16, 600, 100, 2, "one"),
                                           (40, 77, 1, 8, None),
+                                          (8, 3000, 1, 8, None),
                                           (8, 64, 5, 3, "dead")):
         args, codec = pq_inputs(nlist, cap, d, M, B, n_slots, dev, residual,
                                 seed=d + M + B)
         if lists is not None:
             args[6] = torch.full((B, n_slots), 5 if lists == "one" else -1,
                                  dtype=torch.int32, device=dev)
+        if ht is not None:
+            gen = torch.Generator(device=dev).manual_seed(M + B)
+            codec["qcodes"] = torch.randint(
+                0, 256, (B, n_slots, M), generator=gen, device=dev,
+                dtype=torch.int32).to(torch.uint8)
+            codec["ht"] = 4 * M if ht == "half" else 8 * M
         for metric in (Metric.L2, Metric.IP):
             before = scan_scores.launches
             got_s, got_i = scan_scores(*args, metric, **codec)
@@ -524,6 +540,14 @@ def test_k2_pq_matches_plain_version(d, M, residual):
             assert torch.equal(torch.isfinite(got_s), fin)
             tol = 1e-5 * pq_terms(args, codec, metric) + 1e-6
             assert bool(((got_s - want_s).abs() <= tol)[fin].all())
+            if ht is not None:
+                plain = {k: v for k, v in codec.items()
+                         if k not in ("qcodes", "ht")}
+                all_s, _ = scan_scores(*args, metric, **plain)
+                assert torch.equal(got_s[fin], all_s[fin])
+                n_all = int(torch.isfinite(all_s).sum())
+                if ht == "half" and n_all:
+                    assert 0 < int(fin.sum()) < n_all
 
 
 @pytest.mark.cuda
@@ -550,12 +574,14 @@ def test_k2_pq_decode_bitwise(d, M):
 
 @pytest.mark.cuda
 def test_k2_pq_refuses_what_it_cannot_hold():
-    """A codebook wider than shared memory holds raises ValueError on the
-    card (never the plain version), and K1 refuses PQ codes."""
+    """An M whose one lookup table and ring do not fit a block's shared
+    memory (M = d = 256: 256 KB of table) raises ValueError on the card
+    (never the plain version), and K1 refuses PQ codes."""
     dev = _card()
-    d = MAX_D_PQ + 4
-    args, codec = pq_inputs(4, 16, d, d // 4, 2, 2, dev, True)
-    with pytest.raises(ValueError, match="MAX_D_PQ"):
+    d = 256
+    assert max_pq_m(d) < d
+    args, codec = pq_inputs(4, 16, d, d, 2, 2, dev, True)
+    with pytest.raises(ValueError, match=f"M <= {max_pq_m(d)} at d={d}"):
         scan_scores(*args, Metric.L2, **codec)
     args, codec = pq_inputs(4, 16, 16, 4, 2, 2, dev, True)
     with pytest.raises(ValueError):
