@@ -17,14 +17,17 @@
 // caller ran as separate passes (auncel_tpu/index/scan.py:249-268).
 //
 // Storage codecs (worklist.cuh): db holds float32 or bfloat16 vectors, or
-// uint8 SQ8/SQ4/SQ6 codes with sq_scale and sq_bias; the ring stages a
-// tile's stored bytes and the dot units decode each element in registers
+// uint8 SQ8/SQ4/SQ6 codes with sq_scale and sq_bias, decoded in registers
 // (the XLA route decodes a gathered block before the TPU kernel,
-// auncel_tpu/index/scan.py:226). A tile goes by one TMA bulk copy when a
-// slot is a multiple of 16 bytes and the bases are aligned (float32 at d %
-// 4 == 0, SQ8 at d % 16 == 0); otherwise the block copies it (cp.async of
-// 16 or 4 bytes as its address allows, else byte by byte) and arrives on
-// the same mbarriers.
+// auncel_tpu/index/scan.py:226). SQ codes at the widths sq_scan.cuh takes
+// (d % 16 == 0; SQ4 d % 32 == 0; aligned bases) go to that scan, shared
+// with K2: 256-slot stages (a row of the 10M cell is one), a producer warp
+// that runs ahead across items, a slot a thread for small chunks. What
+// follows is the kernel of float32 and bfloat16 rows and of the other SQ
+// widths: a tile goes by one TMA bulk copy when a slot is a multiple of 16
+// bytes and the bases are aligned (float32 at d % 4 == 0); otherwise the
+// block copies it (cp.async of 16 or 4 bytes as its address allows, else
+// byte by byte) and arrives on the same mbarriers.
 //
 // What bounds it: device-memory bandwidth. The least traffic is each
 // distinct live row's live slots read once (the stored bytes, plus norm and
@@ -36,7 +39,7 @@
 //   * inactive entries read nothing; fill units write their worst values
 //     and -1, and those of the slots past row_sizes;
 //   * the live entries are grouped by row on the device (worklist.cuh: a
-//     histogram, a one-block scan and a scatter into a CSR, no host sync),
+//     histogram, a two-pass scan and a scatter into a CSR, no host sync),
 //     and an item is (row, chunk of up to 32 of its entries). A persistent
 //     grid takes the items from an atomic counter; the chunks of one row
 //     are neighbours, so a row leaves device memory once and its other
@@ -72,7 +75,7 @@
 
 #include <type_traits>
 
-#include "worklist.cuh"
+#include "sq_scan.cuh"
 
 namespace {
 
@@ -111,46 +114,6 @@ __device__ __forceinline__ RowSmem carve_rows(const Params& p,
   s.qsq = s.dots + p.chunk * p.tile;
   s.rows = reinterpret_cast<int*>(s.qsq + p.chunk);
   return s;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return (unsigned)__cvta_generic_to_shared(ptr);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@!P1 bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) that completes on `bar`, which this call arms for those bytes.
-__device__ __forceinline__ void tma_load(void* dst, const void* src,
-                                         unsigned bytes, uint64_t* bar) {
-  // the stage's earlier reads (generic proxy) before the copy's writes
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // Scores and ids of row r's live slots [c_begin, c_end) for nq entries
@@ -400,8 +363,9 @@ extern "C" long long rowscan_scores_scratch_ints(int n_rows, int row_cap,
                                                  int codec) {
   const int w = codec_slot_bytes(codec, d);
   if (w <= 0) return -1;
-  return checked_scratch_ints(row_config(n_rows, row_cap, d, w, n_work),
-                              n_rows, n_work);
+  const Config c = row_config(n_rows, row_cap, d, w, n_work);
+  return with_sq_scratch(checked_scratch_ints(c, n_rows, n_work), codec, d,
+                         n_rows, row_cap, n_work, 0);
 }
 
 // Enqueues the row scan on `stream` (a cudaStream_t) of device `device`:
@@ -435,6 +399,14 @@ extern "C" int rowscan_scores_launch(const void* db, const float* db_sq,
                                n_slots, n_rows, row_cap, d, is_l2, c);
   const bool vec4 = vec4_dots(db, q, sq_scale, sq_bias, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Config sc;
+  if (sq_route(codec, d, vec4, n_rows, row_cap, n_work, 0, sc)) {
+    const Params ps = make_params(db, sq_scale, sq_bias, db_sq, vec_ids,
+                                  row_sizes, q, q_sq, rows, scores, ids,
+                                  n_work, n_slots, n_rows, row_cap, d, is_l2,
+                                  sc);
+    return (int)launch_sq_any(codec, ps, sc, scratch, device, s);
+  }
   switch (codec) {
     case kCodecF32: err = launch_codec<F32>(p, c, vec4, scratch, device, s);
       break;

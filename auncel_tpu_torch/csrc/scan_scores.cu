@@ -25,7 +25,13 @@
 // ring stages the stored bytes and the dot units decode each element in
 // registers. A float32 tile is copied slot by slot, as before the codecs; a
 // coded tile is one contiguous run of bytes, copied with 16-byte cp.async
-// where its address allows, else 4-byte, else byte by byte.
+// where its address allows, else 4-byte, else byte by byte. SQ codes at the
+// widths sq_scan.cuh takes (d % 16 == 0; SQ4 d % 32 == 0; aligned bases)
+// go to that scan, shared with K1, with items of one 256-slot stage (the
+// heaviest items, many queries on a long list, then spread over the
+// blocks): at the 10M cell's training chunk, about one query a list, the
+// 64-slot tiles below left most warps idle and each item paid a pipeline
+// fill of its own.
 //
 // What bounds it: device-memory bandwidth. The least traffic is each
 // distinct probed list's live slots read once (the slot's stored bytes,
@@ -121,11 +127,12 @@
 
 #include <type_traits>
 
-#include "worklist.cuh"
+#include "sq_scan.cuh"
 
 namespace {
 
 constexpr int kTilesPerItem = 8;
+constexpr int kSqItemTiles = 1;       // SQ codes: 256-slot tiles an item
 constexpr int kNormStages = 3;        // norms and ids live one step longer
 constexpr int kMaxChunkPQ = 8;        // PQ: entries (tables) of an item
 constexpr long long kPQItems = 2048;  // PQ: items a call aims for
@@ -685,8 +692,9 @@ extern "C" long long scan_scores_scratch_ints(int nlist, int cap, int d,
                                               long long n_work, int codec) {
   const int w = codec_slot_bytes(codec, d);
   if (w <= 0) return -1;
-  return checked_scratch_ints(scan_config(nlist, cap, d, w, n_work), nlist,
-                              n_work);
+  const Config c = scan_config(nlist, cap, d, w, n_work);
+  return with_sq_scratch(checked_scratch_ints(c, nlist, n_work), codec, d,
+                         nlist, cap, n_work, kSqItemTiles);
 }
 
 // Enqueues the scan on `stream` (a cudaStream_t) of device `device`:
@@ -721,6 +729,13 @@ extern "C" int scan_scores_launch(const void* db, const float* db_sq,
                                n_work, n_slots, nlist, cap, d, is_l2, c);
   const bool vec4 = vec4_dots(db, q, sq_scale, sq_bias, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Config sc;
+  if (sq_route(codec, d, vec4, nlist, cap, n_work, kSqItemTiles, sc)) {
+    const Params ps = make_params(db, sq_scale, sq_bias, db_sq, vec_ids,
+                                  list_sizes, q, q_sq, lists, scores, ids,
+                                  n_work, n_slots, nlist, cap, d, is_l2, sc);
+    return (int)launch_sq_any(codec, ps, sc, scratch, device, s);
+  }
   switch (codec) {
     case kCodecF32: err = launch_codec<F32>(p, c, vec4, scratch, device, s);
       break;

@@ -13,14 +13,23 @@
 // or vec_ids[l, c] < 0; list ids >= nlist clamp to nlist - 1.
 //
 // Here: the launch parameters; the worklist that groups the live entries by
-// list on the device (histogram, one-block scan and scatter into a CSR, with
-// the items (list, span of slots, chunk of up to `chunk` entries) beside it;
+// list on the device (histogram, scan and scatter into a CSR, with the
+// items (list, span of slots, chunk of up to `chunk` entries) beside it;
 // no host sync); run_units, which hands a block its items from an atomic
 // counter, or in direct mode (at most one chunk of entries, no worklist)
 // groups the entries inside each block; the storage codecs, which decode a
 // stored element in registers; the fp32 dots of a staged tile with a
 // chunk's queries (dot_units); and the fill units that write the dead
-// slots. Each scan brings its own way of staging a tile (scan_item).
+// slots. Each scan brings its own way of staging a tile (scan_item); the
+// SQ codecs have a scan of their own (sq_scan.cuh).
+//
+// The plan (the scan of the per-list counts) runs over many blocks of
+// kPlanThreads lists, each list read once and coalesced: a pass of block
+// sums, then a pass in which each block adds the sums before it to a scan
+// of its lists (up to kPlanThreads lists, the second pass alone). One
+// block looping over 40k lists, one serial load after another, took
+// 150-160 us at the 10M cell's 39576 rows; two passes take about 5 us, and
+// write the same offsets.
 //
 // Storage codecs: db holds float32 or bfloat16 vectors, or uint8 scalar-
 // quantizer codes (SQ8: d bytes a slot; SQ4: d / 2, two dims a byte, low
@@ -75,9 +84,16 @@ inline int codec_slot_bytes(int codec, int d) {
   }
 }
 
+// (float)c for c < 2^23, exactly, without the conversion unit (a quarter
+// of the FMA rate on sm_90): 2^23 + c has c in its mantissa, and the
+// subtraction of 2^23 is exact.
+__device__ __forceinline__ float code_float(unsigned c) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | c), 8388608.0f);
+}
+
 __device__ __forceinline__ float sq_affine(unsigned code, float scale,
                                            float bias) {
-  return __fadd_rn(__fmul_rn((float)code, scale), bias);
+  return __fadd_rn(__fmul_rn(code_float(code), scale), bias);
 }
 
 __device__ __forceinline__ float4 sq_affine4(unsigned c0, unsigned c1,
@@ -330,7 +346,7 @@ __device__ void fill_unit(const Params& p, int f) {
 
 // The dots of a staged tile's first n_live slots (ring: the tile's stored
 // slots, slot_bytes each, decoded by Codec) with the nq staged queries (qs,
-// [chunk][d]), into dots ([chunk][tile]). A unit is kSlots slots x 32 /
+// [chunk][d]), into dots ([chunk][ld]). A unit is kSlots slots x 32 /
 // kSlots queries, 32 dots that one reduce-scatter finishes, one per lane;
 // each lane holds its float4 (or float) of the unit's queries and streams
 // the slots past them.
@@ -338,7 +354,7 @@ template <typename Codec, bool kVec4, int kSlots>
 __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
                                           float* dots,
                                           const unsigned char* ring,
-                                          int n_live, int nq) {
+                                          int n_live, int nq, int ld) {
   constexpr int kQ = 32 / kSlots;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int d = p.d, w = p.slot_bytes;
@@ -381,7 +397,7 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
           }
           const float dot = reduce_scatter32(acc, lane);
           const int k = qg * kQ + lane % kQ;
-          if (k < nq) dots[k * p.tile + sg * kSlots + lane / kQ] = dot;
+          if (k < nq) dots[k * ld + sg * kSlots + lane / kQ] = dot;
         }
       }
       return;
@@ -442,7 +458,7 @@ __device__ __forceinline__ void dot_units(const Params& p, const float* qs,
     }
     const float dot = reduce_scatter32(acc, lane);
     const int k = qg * kQ + lane % kQ;
-    if (k < nq) dots[k * p.tile + sg * kSlots + lane / kQ] = dot;
+    if (k < nq) dots[k * ld + sg * kSlots + lane / kQ] = dot;
   }
 }
 
@@ -454,11 +470,11 @@ __device__ __forceinline__ void tile_dots(const Params& p, const float* qs,
                                           const unsigned char* ring,
                                           int n_live, int nq) {
   if (nq == 1 && p.tile % 32 == 0)
-    dot_units<Codec, kVec4, 32>(p, qs, dots, ring, n_live, nq);
+    dot_units<Codec, kVec4, 32>(p, qs, dots, ring, n_live, nq, p.tile);
   else if (nq <= 2 && p.tile % 16 == 0)
-    dot_units<Codec, kVec4, 16>(p, qs, dots, ring, n_live, nq);
+    dot_units<Codec, kVec4, 16>(p, qs, dots, ring, n_live, nq, p.tile);
   else
-    dot_units<Codec, kVec4, 8>(p, qs, dots, ring, n_live, nq);
+    dot_units<Codec, kVec4, 8>(p, qs, dots, ring, n_live, nq, p.tile);
 }
 
 // A block's share of the work. scan(l, c_begin, c_end, nq, ents) scores
@@ -545,47 +561,35 @@ __global__ void count_kernel(const int* __restrict__ lists, int n_work,
   if (raw >= 0) atomicAdd(cnt + min(raw, nlist - 1), 1);
 }
 
-constexpr int kPlanThreads = 1024;
+constexpr int kPlanThreads = 1024;   // lists of a plan block, one a thread
 
-// One block: CSR offsets of the entries and of the items by list.
-__global__ void __launch_bounds__(kPlanThreads)
-plan_kernel(const int* __restrict__ cnt, const int* __restrict__ list_sizes,
-            int nlist, int cap, int chunk, int span, int* __restrict__ off,
-            int* __restrict__ cursor, int* __restrict__ item_off,
-            int* __restrict__ n_items) {
-  __shared__ int warp_e[32], warp_i[32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (nlist + kPlanThreads - 1) / kPlanThreads;
-  const int lo = min(t * per, nlist), hi = min(lo + per, nlist);
-  auto items_of = [&](int l, int c) {
-    if (c == 0) return 0;
-    const int size = min(max(list_sizes[l], 0), cap);
-    return ((size + span - 1) / span) * ((c + chunk - 1) / chunk);
-  };
-  int se = 0, si = 0;
-  for (int l = lo; l < hi; ++l) {
-    const int c = cnt[l];
-    se += c;
-    si += items_of(l, c);
-  }
-  int ie = se, ii = si;
+// Items of list l with c entries: spans of its live slots x chunks of c.
+__device__ __forceinline__ int items_of(const int* __restrict__ list_sizes,
+                                        int l, int c, int cap, int chunk,
+                                        int span) {
+  if (c == 0) return 0;
+  const int size = min(max(list_sizes[l], 0), cap);
+  return ((size + span - 1) / span) * ((c + chunk - 1) / chunk);
+}
+
+// Inclusive scan of (e, i) over the block's kPlanThreads threads (ws: 32
+// pairs of shared memory); the block's totals are the last thread's.
+__device__ __forceinline__ int2 block_scan(int e, int i, int2* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int ve = __shfl_up_sync(0xffffffffu, ie, o);
-    const int vi = __shfl_up_sync(0xffffffffu, ii, o);
+    const int ve = __shfl_up_sync(0xffffffffu, e, o);
+    const int vi = __shfl_up_sync(0xffffffffu, i, o);
     if (lane >= o) {
-      ie += ve;
-      ii += vi;
+      e += ve;
+      i += vi;
     }
   }
-  if (lane == 31) {
-    warp_e[warp] = ie;
-    warp_i[warp] = ii;
-  }
+  if (lane == 31) ws[warp] = make_int2(e, i);
   __syncthreads();
   if (warp == 0) {
-    const int we = warp_e[lane], wi = warp_i[lane];
-    int ce = we, ci = wi;
+    const int2 w = ws[lane];
+    int ce = w.x, ci = w.y;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int ve = __shfl_up_sync(0xffffffffu, ce, o);
@@ -595,23 +599,67 @@ plan_kernel(const int* __restrict__ cnt, const int* __restrict__ list_sizes,
         ci += vi;
       }
     }
-    warp_e[lane] = ce - we;
-    warp_i[lane] = ci - wi;
+    ws[lane] = make_int2(ce - w.x, ci - w.y);
   }
   __syncthreads();
-  int e0 = warp_e[warp] + ie - se, i0 = warp_i[warp] + ii - si;
-  for (int l = lo; l < hi; ++l) {
-    const int c = cnt[l];
+  return make_int2(ws[warp].x + e, ws[warp].y + i);
+}
+
+// The plan's first pass: block b's sums of entries and items over its
+// kPlanThreads lists, read once and coalesced.
+__global__ void __launch_bounds__(kPlanThreads)
+plan_sums_kernel(const int* __restrict__ cnt,
+                 const int* __restrict__ list_sizes, int nlist, int cap,
+                 int chunk, int span, int* __restrict__ sum_e,
+                 int* __restrict__ sum_i) {
+  __shared__ int2 ws[32];
+  const int l = blockIdx.x * kPlanThreads + threadIdx.x;
+  const int c = l < nlist ? cnt[l] : 0;
+  const int n = l < nlist ? items_of(list_sizes, l, c, cap, chunk, span) : 0;
+  const int2 incl = block_scan(c, n, ws);
+  if (threadIdx.x == kPlanThreads - 1) {
+    sum_e[blockIdx.x] = incl.x;
+    sum_i[blockIdx.x] = incl.y;
+  }
+}
+
+// The second pass: CSR offsets of the entries and of the items by list.
+// Block b adds the sums of the blocks before it to a scan of its lists.
+__global__ void __launch_bounds__(kPlanThreads)
+plan_kernel(const int* __restrict__ cnt, const int* __restrict__ list_sizes,
+            int nlist, int cap, int chunk, int span,
+            const int* __restrict__ sum_e, const int* __restrict__ sum_i,
+            int* __restrict__ off, int* __restrict__ cursor,
+            int* __restrict__ item_off, int* __restrict__ n_items) {
+  __shared__ int2 ws[32];
+  __shared__ int2 base;
+  const int l = blockIdx.x * kPlanThreads + threadIdx.x;
+  if (threadIdx.x < 32) {
+    int be = 0, bi = 0;
+    for (int b = threadIdx.x; b < (int)blockIdx.x; b += 32) {
+      be += sum_e[b];
+      bi += sum_i[b];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      be += __shfl_xor_sync(0xffffffffu, be, o);
+      bi += __shfl_xor_sync(0xffffffffu, bi, o);
+    }
+    if (threadIdx.x == 0) base = make_int2(be, bi);
+  }
+  const int c = l < nlist ? cnt[l] : 0;
+  const int n = l < nlist ? items_of(list_sizes, l, c, cap, chunk, span) : 0;
+  const int2 incl = block_scan(c, n, ws);   // its barriers publish base
+  const int e0 = base.x + incl.x - c, i0 = base.y + incl.y - n;
+  if (l < nlist) {
     off[l] = e0;
     cursor[l] = e0;
     item_off[l] = i0;
-    e0 += c;
-    i0 += items_of(l, c);
   }
-  if (t == kPlanThreads - 1) {
-    off[nlist] = e0;
-    item_off[nlist] = i0;
-    *n_items = i0;
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == kPlanThreads - 1) {
+    off[nlist] = e0 + c;
+    item_off[nlist] = i0 + n;
+    *n_items = i0 + n;
   }
 }
 
@@ -631,12 +679,22 @@ __global__ void scatter_kernel(const int* __restrict__ lists, int n_work,
   }
 }
 
-// scratch layout in ints: counter, cnt[nlist], off[nlist + 1],
-// cursor[nlist], item_off[nlist + 1], n_items, order[n_work], (pad to even),
-// items[max_items] as int2
+inline long long plan_blocks(int nlist) {
+  return (nlist + kPlanThreads - 1) / kPlanThreads;
+}
+
+// Ints of the scratch before the items: counter, cnt[nlist], off[nlist + 1],
+// cursor[nlist], item_off[nlist + 1], n_items, the plan blocks' sums of
+// entries and of items, order[n_work].
+inline long long scratch_head_ints(int nlist, long long n_work) {
+  return 1 + nlist + (nlist + 1) + nlist + (nlist + 1) + 1 +
+         2 * plan_blocks(nlist) + n_work;
+}
+
+// scratch layout in ints: the head, (pad to even), items[max_items] as int2
 long long scratch_ints(const Config& c, int nlist, long long n_work) {
   if (c.direct) return 0;
-  long long n = 1 + nlist + (nlist + 1) + nlist + (nlist + 1) + 1 + n_work;
+  long long n = scratch_head_ints(nlist, n_work);
   n += n & 1;
   return n + 2 * c.max_items;
 }
@@ -652,16 +710,18 @@ long long checked_scratch_ints(const Config& c, int nlist, long long n_work) {
   return n;
 }
 
-// Sets the kernel's shared-memory limit and reads its occupancy, once per
-// (kernel, device) and size; `done` and `occupancy` are that kernel's.
+// Sets the kernel's shared-memory limit and reads its occupancy at blocks
+// of `threads`, once per (kernel, device) and size; `done` and `occupancy`
+// are that kernel's.
 cudaError_t prepare(const void* kernel, size_t smem, int& done,
-                    int& occupancy, int* blocks_per_sm) {
+                    int& occupancy, int* blocks_per_sm,
+                    int threads = kThreads) {
   if ((size_t)done != smem) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy, kernel,
-                                                        kThreads, smem);
+                                                        threads, smem);
     if (err != cudaSuccess) return err;
     done = (int)smem;
   }
@@ -669,18 +729,19 @@ cudaError_t prepare(const void* kernel, size_t smem, int& done,
   return cudaSuccess;
 }
 
-// Enqueues `kernel` over p's units: in direct mode one block per span and
-// fill unit; otherwise the worklist's memset, histogram, scan and scatter,
-// then a persistent grid of per_sm blocks on each SM.
+// Enqueues `kernel` (blocks of `threads`) over p's units: in direct mode
+// one block per span and fill unit; otherwise the worklist's memset,
+// histogram, two-pass scan and scatter, then a persistent grid of per_sm
+// blocks on each SM.
 cudaError_t launch_units(void (*kernel)(Params), int per_sm, Params p,
                          const Config& c, int* scratch, int device,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int threads = kThreads) {
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long n_fill = (p.n_work + kFillRows - 1) / kFillRows;
   p.n_fill = (int)n_fill;
   if (c.direct) {
     p.direct_ub = p.n_work * ((p.cap + c.span - 1) / c.span);
-    kernel<<<(unsigned)(p.direct_ub + n_fill), kThreads, c.smem, stream>>>(p);
+    kernel<<<(unsigned)(p.direct_ub + n_fill), threads, c.smem, stream>>>(p);
     return cudaGetLastError();
   }
   const int nlist = p.nlist;
@@ -690,18 +751,23 @@ cudaError_t launch_units(void (*kernel)(Params), int per_sm, Params p,
   int* cursor = off + nlist + 1;
   int* item_off = cursor + nlist;
   int* n_items = item_off + nlist + 1;
-  int* order = n_items + 1;
-  const long long pre = 1 + nlist + (nlist + 1) + nlist + (nlist + 1) + 1 +
-                        (long long)p.n_work;
+  const int nb = (int)plan_blocks(nlist);
+  int* sum_e = n_items + 1;
+  int* sum_i = sum_e + nb;
+  int* order = sum_i + nb;
+  const long long pre = scratch_head_ints(nlist, p.n_work);
   int2* items = reinterpret_cast<int2*>(scratch + pre + (pre & 1));
   cudaError_t err =
       cudaMemsetAsync(counter, 0, sizeof(int) * (1 + (size_t)nlist), stream);
   if (err != cudaSuccess) return err;
   const unsigned g_work = (unsigned)((p.n_work + 255) / 256);
   count_kernel<<<g_work, 256, 0, stream>>>(p.lists, p.n_work, nlist, cnt);
-  plan_kernel<<<1, kPlanThreads, 0, stream>>>(cnt, p.list_sizes, nlist,
-                                              p.cap, c.chunk, c.span, off,
-                                              cursor, item_off, n_items);
+  if (nb > 1)  // one block has no blocks before it to sum
+    plan_sums_kernel<<<nb, kPlanThreads, 0, stream>>>(
+        cnt, p.list_sizes, nlist, p.cap, c.chunk, c.span, sum_e, sum_i);
+  plan_kernel<<<nb, kPlanThreads, 0, stream>>>(
+      cnt, p.list_sizes, nlist, p.cap, c.chunk, c.span, sum_e, sum_i, off,
+      cursor, item_off, n_items);
   const long long n_sc = p.n_work > nlist ? p.n_work : nlist;
   scatter_kernel<<<(unsigned)((n_sc + 255) / 256), 256, 0, stream>>>(
       p.lists, p.n_work, nlist, cursor, item_off, order, items);
@@ -718,7 +784,7 @@ cudaError_t launch_units(void (*kernel)(Params), int per_sm, Params p,
   long long grid = (long long)n_sm * per_sm;
   const long long units = c.max_items + n_fill;
   if (grid > units) grid = units;
-  kernel<<<(unsigned)grid, kThreads, c.smem, stream>>>(p);
+  kernel<<<(unsigned)grid, threads, c.smem, stream>>>(p);
   return cudaGetLastError();
 }
 

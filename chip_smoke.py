@@ -11,7 +11,11 @@ and rowscan_dots alone; K1 and K2 on each storage codec (bf16, SQ8, SQ4,
 SQ6) at the bench shapes ([k1 CODEC], [k2 CODEC]); K2 on PQ codes at
 synthetic layouts of the recorded PQ calls ([k2 pq]: the [pq 10M] window's
 largest, batch 1, a training chunk, [2layer]'s call and d 256 / M 32),
-residual and plain, without and with the polysemous filter; the bounded-search
+residual and plain, without and with the polysemous filter; K1 and K2 on
+SQ8 codes at synthetic layouts of the recorded 10M SQ8 calls ([k1 sq8
+synth], [k2 sq8 synth]: the window's largest row scan, batch 1, the
+sharded window's largest, a training chunk, the sharded fixed call), each
+with the device time of the worklist's kernels; the bounded-search
 main path on the multi-row layout (K1 in search, K2 in profile
 training): calibration with its
 measured dense crossover, the held-out window through the one-shot engine
@@ -110,7 +114,8 @@ then
                    fails) and 200 at batch 1 (K1 on the row codes), fixed-
                    nprobe search on the dense route against the gathers
                    and with max_codes, and K1 and K2 on the codes at
-                   worklists recorded from this path;
+                   worklists recorded from this path (K1 with the device
+                   time of the worklist's kernels beside each call);
   [pq 10M]         the same corpus with residual IVFPQ (IVF1024,PQ16,
                    polysemous codebooks) on the [sq8 10M] phase's coarse
                    centroids, served by the padded engines with K2 on
@@ -185,7 +190,14 @@ not counted). Exits non-zero
 when there is no CUDA device or any phase fails. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--against DIR]
+
+``--against DIR`` (DIR the root of another tree of the port, such as the
+parent commit's) builds that tree's csrc/rowscan.cu and csrc/scan_scores.cu
+with this tree's flags and times its K1 and K2 beside this tree's wherever
+k1_compare and k2_compare run (float32 and SQ codes), in turns, with
+whether the two give the same bits: at the calls recorded from this tree's
+main path too, which a run from the other tree's root cannot replay.
 
 ``--profile DIR`` also writes torch.profiler tables of one batched and one
 batch-1 search on each path (the 10M one too), of the 0.9 and the strict
@@ -347,6 +359,89 @@ K2_PQ_SHAPES = (("10M window", 1024, 20448, 9766, 96, 16, 1000, 1),
                 ("d 256 M 32", 1024, 3859, 977, 256, 32, 1000, 4))
 
 
+# (name, kernel, lists or rows, cap, mean list size (None: rows, 90 % of
+# them full), d, B, n_slots, inactive share of each query's slots): K1 and
+# K2 on SQ8 codes at synthetic layouts of the calls recorded from the 10M
+# SQ8 path: the [sq8 10M] window's largest row scan (a tail round, about
+# 29500 distinct live rows of 39576), a batch-1 row scan through the
+# worklist, the largest per-shard row scan of [sharded 10M] (2.5M rows a
+# shard), a profile-training chunk of [sq8 10M] (IVF1024, cap 20416) and
+# the largest per-shard call of [sharded 10M fixed] (nprobe 32)
+SQ8_10M_SHAPES = (
+    ("10M window, largest", "k1", 39576, 256, None, 96, 256, 256, 0.174),
+    ("10M batch 1", "k1", 39576, 256, None, 96, 1, 64, 0.0),
+    ("sharded 10M window, largest", "k1", 10800, 256, None, 96, 1000, 39,
+     0.1),
+    ("10M training chunk", "k2", 1024, 20416, 9766, 96, 100, 8, 0.0),
+    ("sharded 10M fixed", "k2", 1024, 4560, 2441, 96, 1000, 3, 0.0))
+
+
+def synthetic_sq8(device, n, cap, mean, d, B, n_slots, inactive, seed):
+    """An SQ8 layout of random codes made on the card: a per-dimension
+    range that decodes to about N(0, 1/d), db_sq the decoded norms (zero
+    at dead slots), ids by slot and -1 past the size; rows (mean None)
+    90 % full, lists uniform in [0, 2 * mean]; queries ~ N(0, 1/d), each
+    probing n_slots distinct rows or lists, the last ``inactive`` share of
+    them inactive (-1), as past a query's limit. Returns (args, codec
+    keywords)."""
+    from auncel_tpu_torch.ops.sq import sq_decode_dev
+    gen = torch.Generator(device=device).manual_seed(seed)
+    codes = torch.randint(0, 256, (n, cap, d), generator=gen, device=device,
+                          dtype=torch.uint8)
+    scale = torch.rand(d, generator=gen, device=device) * 4.0 / 255 \
+        / d ** 0.5 + 1e-3
+    bias = (-127.5 * scale + 0.1 * torch.randn(d, generator=gen,
+                                               device=device)).contiguous()
+    if mean is None:
+        sizes = torch.where(
+            torch.rand(n, generator=gen, device=device) < 0.9, cap,
+            torch.randint(1, cap + 1, (n,), generator=gen, device=device))
+    else:
+        sizes = torch.randint(0, min(cap, 2 * mean) + 1, (n,), generator=gen,
+                              device=device)
+    sizes = sizes.to(torch.int32)
+    live = torch.arange(cap, device=device)[None, :] < sizes[:, None]
+    ids = torch.where(live, torch.arange(n * cap, device=device,
+                                         dtype=torch.int32).reshape(n, cap),
+                      -1)
+    db_sq = torch.empty((n, cap), device=device)
+    step = max(1, (1 << 26) // (cap * d))
+    for r0 in range(0, n, step):
+        x = sq_decode_dev(codes[r0:r0 + step], d, scale, bias)
+        db_sq[r0:r0 + step] = torch.where(live[r0:r0 + step],
+                                          (x * x).sum(-1), 0.0)
+    del x
+    q = torch.randn((B, d), generator=gen, device=device) * d ** -0.5
+    probes = torch.argsort(torch.rand((B, n), generator=gen, device=device),
+                           dim=1)[:, :n_slots].to(torch.int32)
+    n_off = int(round(n_slots * inactive))
+    if n_off:
+        probes[:, n_slots - n_off:] = -1
+    args = (codes, db_sq, ids.to(torch.int32), sizes, q, (q * q).sum(-1),
+            probes.contiguous())
+    return args, {"sq_scale": scale.contiguous(), "sq_bias": bias}
+
+
+def sq8_10m_check(device, card: str) -> dict:
+    """K1 and K2 on SQ8 codes at SQ8_10M_SHAPES against their plain
+    versions (within 1e-5 of q_sq + db_sq), each with the worklist's
+    kernels' device time: the [k1 sq8 synth] and [k2 sq8 synth] lines.
+    Run from another tree's root (the docstring) it times that tree's
+    kernels on the same layouts. Returns the numbers by name."""
+    from auncel_tpu_torch import Metric
+    out = {}
+    for name, kernel, n, cap, mean, d, B, S, off in SQ8_10M_SHAPES:
+        args, cd = synthetic_sq8(device, n, cap, mean, d, B, S, off, seed=8)
+        compare = k1_compare if kernel == "k1" else k2_compare
+        out[name] = compare(name, args, Metric.L2, card,
+                            reps=200 if B * S <= 64 else 10, terms_tol=True,
+                            codec=cd, label=f"{kernel} sq8 synth",
+                            worklist=True)
+        del args, cd
+        torch.cuda.empty_cache()
+    return out
+
+
 def k1_dots_check(device, card: str) -> dict:
     """Compare rowscan_dots, off the main path, with its plain version and
     time both."""
@@ -413,6 +508,57 @@ def dots_route(db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric):
     return scores.reshape(B, S * cap), sub_ids.reshape(B, S * cap)
 
 
+# --against DIR: the libraries of another tree of the port, whose K1 and K2
+# are timed beside this tree's (load_against, against_route)
+AGAINST: dict = {}
+
+
+def load_against(root: str) -> None:
+    """Build the tree at ``root``'s csrc/rowscan.cu and csrc/scan_scores.cu
+    with this tree's nvcc flags into its _build (one nvcc each, in
+    parallel) and bind them as this tree binds its own."""
+    import ctypes
+    from auncel_tpu_torch.kernels import build
+    from auncel_tpu_torch.kernels.scan_scores import bind_scan
+    pkg = os.path.join(root, "auncel_tpu_torch")
+    os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
+
+    def make(name):
+        so = os.path.abspath(os.path.join(pkg, "_build", f"against_{name}.so"))
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", so,
+                        os.path.join(pkg, "csrc", f"{name}.cu")],
+                       check=True, capture_output=True)
+        return ctypes.CDLL(so)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        k1, k2 = pool.map(make, ("rowscan", "scan_scores"))
+    AGAINST["rowscan_scores"] = bind_scan(k1, "rowscan_scores")
+    AGAINST["scan_scores"] = bind_scan(k2, "scan_scores", pq=True)
+
+
+def against_route(name: str, args, metric, codec: dict):
+    """The other tree's kernel ``name`` (rowscan_scores or scan_scores) on
+    args, float32 or SQ codes, as a callable; None without --against."""
+    lib = AGAINST.get(name)
+    if lib is None or codec.get("pq_codebooks") is not None:
+        return None
+    from auncel_tpu_torch.kernels.scan_scores import launch_scan, scan_codec
+    sc, bi = codec.get("sq_scale"), codec.get("sq_bias")
+    cid = scan_codec(name, args[0], args[4].shape[1], sc, bi)
+    return lambda: launch_scan(name, lib, args, metric, cid, sc, bi)[:2]
+
+
+def other_line(routes: dict, t: dict, got: tuple) -> str:
+    """``routes``' other tree, if any: its time and whether it gives this
+    tree's kernel's scores and ids bit for bit."""
+    if "other tree" not in routes:
+        return ""
+    o_s, o_i = routes["other tree"]()
+    torch.cuda.synchronize()
+    eq = torch.equal(o_s, got[0]) and torch.equal(o_i, got[1])
+    return (f", other tree {t['other tree']:.4f} ms (bitwise equal: "
+            f"{eq})")
+
+
 def time_routes(routes: dict, reps: int) -> dict:
     """Milliseconds per call of each route (CUDA events over reps calls),
     in turns: every route in order, then in reverse; the lesser of the
@@ -426,13 +572,14 @@ def time_routes(routes: dict, reps: int) -> dict:
 
 def k1_compare(name, args, metric, card: str, reps: int = 20,
                terms_tol: bool = False, codec: dict | None = None,
-               label: str = "k1") -> dict:
+               label: str = "k1", worklist: bool = False) -> dict:
     """rowscan_scores against its plain version on one input set (ids and
     dead slots equal; scores within rtol = atol = 1e-5, or with
     ``terms_tol`` within 1e-5 of q_sq + db_sq, as k2_compare), timed in
     turns with the dots route (float32 storage only), K2 over the same
     rows (bitwise equal) and the plain version; returns its numbers.
-    ``codec``: the SQ range (sq_scale, sq_bias) of uint8 storage."""
+    ``codec``: the SQ range (sq_scale, sq_bias) of uint8 storage;
+    ``worklist``: also print the device time of the worklist's kernels."""
     from auncel_tpu_torch.kernels.rowscan import (
         rowscan_scores, rowscan_scores_ref)
     from auncel_tpu_torch.kernels.scan_scores import scan_scores
@@ -443,6 +590,9 @@ def k1_compare(name, args, metric, card: str, reps: int = 20,
               "plain": lambda: rowscan_scores_ref(*args, metric, **cd)}
     if args[0].dtype != torch.float32:
         del routes["dots route"]
+    other = against_route("rowscan_scores", args, metric, cd)
+    if other is not None:
+        routes["other tree"] = other
     got_s, got_i = routes["kernel"]()
     want_s, want_i = routes["plain"]()
     torch.cuda.synchronize()
@@ -469,10 +619,12 @@ def k1_compare(name, args, metric, card: str, reps: int = 20,
     if "dots route" in routes:
         check(torch.equal(routes["dots route"]()[1], got_i),
               f"K1 {name}: the dots route gives other ids")
-    del got_s, got_i, want_s, want_i, diff, fin, k2_s, k2_i
+    del want_s, want_i, diff, fin, k2_s, k2_i
     t = time_routes(routes, reps)
+    other_s = other_line(routes, t, (got_s, got_i))
+    del got_s, got_i
     t.setdefault("dots route", float("nan"))   # float32 storage only
-    t_dev = device_ms(routes["kernel"], 10)
+    t_dev, split = device_split(routes["kernel"], 10)
     work = k2_work(*args)
     live = rows >= 0
     distinct = int(torch.unique(
@@ -488,13 +640,16 @@ def k1_compare(name, args, metric, card: str, reps: int = 20,
         + "), dots route " + (f"{t['dots route']:.4f} ms"
                               if "dots route" in routes else "f32 only")
         + f", K2 on rows "
-        f"{t['K2 on rows']:.4f} ms, plain {t['plain']:.4f} ms; bound "
-        f"{work['bound_ms']:.4f} ms ({work['bound_by']}, "
+        f"{t['K2 on rows']:.4f} ms, plain {t['plain']:.4f} ms" + other_s
+        + f"; bound {work['bound_ms']:.4f} ms ({work['bound_by']}, "
         f"{work['bound_bytes'] / 1e9:.3f} GB: each distinct live row read "
         f"once) [{card}]")
+    if worklist:
+        log(f"[{label}] {name}: " + worklist_line(split) + f" [{card}]")
     return {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
-            "dots_ms": t["dots route"], "k2_ms": t["K2 on rows"]}
+            "dots_ms": t["dots route"], "k2_ms": t["K2 on rows"],
+            "other_ms": t.get("other tree", float("nan"))}
 
 
 def k1_check(device, card: str) -> dict:
@@ -515,10 +670,12 @@ def k1_check(device, card: str) -> dict:
 
 def k2_compare(name, args, metric, card: str, reps: int = 20,
                terms_tol: bool = False, codec: dict | None = None,
-               label: str = "k2", routes: tuple | None = None) -> dict:
+               label: str = "k2", routes: tuple | None = None,
+               worklist: bool = False) -> dict:
     """K2 against its plain version on one input set; returns its numbers.
     ``routes``: the (kernel, plain) pair to call instead of scan_scores
-    and scan_scores_ref (``filter_routes``).
+    and scan_scores_ref (``filter_routes``); ``worklist``: also print the
+    device time of the worklist's kernels.
     With ``terms_tol`` the L2 tolerance is 1e-5 of the score's terms
     (q_sq + db_sq) rather than of the score: on data of SIFT's scale a
     near neighbour's score is the difference of terms ~60x larger than it,
@@ -571,10 +728,19 @@ def k2_compare(name, args, metric, card: str, reps: int = 20,
     else:
         torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
         tol = "rtol = atol = 1e-5"
-    del got_s, got_i, want_s, want_i
+    del want_s, want_i
     t_k, t_ref = time_pair(lambda: scan_scores(*args, metric, **cd),
                            lambda: scan_scores_ref(*args, metric, **cd), reps)
-    t_dev = device_ms(lambda: scan_scores(*args, metric, **cd), 20)
+    other = None if routes else against_route("scan_scores", args, metric,
+                                              cd)
+    other_s = ""
+    if other is not None:
+        pair = {"kernel": lambda: scan_scores(*args, metric, **cd),
+                "other tree": other}
+        t_o = time_routes(pair, reps)
+        other_s = other_line(pair, t_o, (got_s, got_i))
+    del got_s, got_i
+    t_dev, split = device_split(lambda: scan_scores(*args, metric, **cd), 20)
     dev = "not measured" if t_dev is None else f"{t_dev:.4f} ms"
     work = k2_work(*args, codec=cd)
     B, S = args[6].shape
@@ -584,10 +750,12 @@ def k2_compare(name, args, metric, card: str, reps: int = 20,
         f"err={rel:.3g} ({tol}) kernel {t_k:.4f} ms "
         f"({work['bound_bytes'] / t_k / 1e6:.1f} GB/s of the bound's bytes; "
         f"{work['live_bytes'] / t_k / 1e6:.1f} GB/s of live bytes, once per "
-        f"probe), device time a call {dev}; plain {t_ref:.4f} ms; "
+        f"probe), device time a call {dev}; plain {t_ref:.4f} ms{other_s}; "
         f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}, "
         f"{work['bound_bytes'] / 1e9:.3f} GB), "
         f"{100 * work['bound_ms'] / t_k:.1f} % of it [{card}]")
+    if worklist:
+        log(f"[{label}] {name}: " + worklist_line(split) + f" [{card}]")
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_ref,
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
 
@@ -955,7 +1123,7 @@ def record_row_scans(fn, name: str = "rowscan_scores", module=None) -> list:
 
 
 def k1_recorded(label: str, calls: list, card: str,
-                tag: str = "k1") -> dict:
+                tag: str = "k1", worklist: bool = False) -> dict:
     """K1 at the worklists a window's row scans gave it: each call checked
     against the plain version (within 1e-5 of q_sq + db_sq) and timed in
     turns with the dots route, K2 on the same rows and the plain version;
@@ -964,11 +1132,11 @@ def k1_recorded(label: str, calls: list, card: str,
     from auncel_tpu_torch.kernels.rowscan import rowscan_scores
     from auncel_tpu_torch.kernels.scan_scores import scan_scores
     tot = {"ms": 0.0, "dots_ms": 0.0, "k2_ms": 0.0, "plain_ms": 0.0,
-           "bound_ms": 0.0}
+           "bound_ms": 0.0, "other_ms": 0.0}
     for i, (stage, args, metric, kw) in enumerate(calls):
         res = k1_compare(f"{label}, call {i + 1} of {len(calls)} ({stage})",
                          args, metric, card, reps=10, terms_tol=True,
-                         codec=kw, label=tag)
+                         codec=kw, label=tag, worklist=worklist)
         for k in tot:
             tot[k] += res[k]
     dev = {}
@@ -983,8 +1151,9 @@ def k1_recorded(label: str, calls: list, card: str,
     log(f"[{tag}] {label}, all {len(calls)} row scans: kernel {tot['ms']:.3f} "
         f"ms ({100 * tot['bound_ms'] / tot['ms']:.1f} % of the summed bound "
         f"{tot['bound_ms']:.3f} ms), dots route {tot['dots_ms']:.3f} ms, K2 "
-        f"on rows {tot['k2_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms; "
-        f"device time over the calls (profiler): kernel {dev['kernel']}, "
+        f"on rows {tot['k2_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms"
+        + (f", other tree {tot['other_ms']:.3f} ms" if AGAINST else "")
+        + f"; device time over the calls (profiler): kernel {dev['kernel']}, "
         f"dots route {dev['dots route']}, K2 on rows {dev['K2 on rows']} "
         f"[{card}]")
     return tot
@@ -2733,9 +2902,10 @@ def kernels_10m(es, xq, card: str) -> dict:
     idx = es.index
     out = {}
     calls = record_row_scans(lambda: es.search(START10M, N_TEST_Q))
-    tot = k1_recorded("10M window", calls, card, tag="k1 sq8")
+    tot = k1_recorded("10M window", calls, card, tag="k1 sq8",
+                      worklist=True)
     calls1 = record_row_scans(lambda: es.search(START10M, 1))
-    k1_recorded("10M batch 1", calls1, card, tag="k1 sq8")
+    k1_recorded("10M batch 1", calls1, card, tag="k1 sq8", worklist=True)
     big = max(calls, key=lambda c: int((c[1][6] >= 0).sum()))
     out["rowscan_scores"] = k1_compare(
         f"10M window, the largest row scan ({big[0]})", big[1], big[2], card,
@@ -3663,10 +3833,17 @@ def profile_call(fn, out_dir: str, card: str, label: str) -> None:
         f"%) [{card}]")
 
 
-def device_ms(fn, reps: int) -> float | None:
-    """The device's own time per call of fn (every kernel and copy it
-    enqueues, without the host's gaps), from torch.profiler; None when the
-    profiler recorded no device event."""
+# the worklist's kernels (csrc/worklist.cuh) by a piece of their names:
+# the memset of its counters, the histogram, the plan (one pass, or its
+# two passes) and the scatter
+WORKLIST_KERNELS = (("memset", "Memset"), ("count", "count_kernel"),
+                    ("plan", "plan_"), ("scatter", "scatter_kernel"))
+
+
+def device_split(fn, reps: int) -> tuple:
+    """(the device's own ms per call of fn, or None when the profiler
+    recorded no device event; the ms per call of each of the worklist's
+    kernels), from one torch.profiler run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3675,9 +3852,28 @@ def device_ms(fn, reps: int) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps if us > 0 else None
+    us, split = 0.0, {k: 0.0 for k, _ in WORKLIST_KERNELS}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us += e.self_device_time_total
+        for k, piece in WORKLIST_KERNELS:
+            if piece in e.key:
+                split[k] += e.self_device_time_total / 1e3 / reps
+    return (us / 1e3 / reps if us > 0 else None), split
+
+
+def worklist_line(split: dict) -> str:
+    return ("worklist kernels' device time a call (profiler): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + f", together {sum(split.values()):.4f} ms")
+
+
+def device_ms(fn, reps: int) -> float | None:
+    """The device's own time per call of fn (every kernel and copy it
+    enqueues, without the host's gaps), from torch.profiler; None when the
+    profiler recorded no device event."""
+    return device_split(fn, reps)[0]
 
 
 def ptxas_report(text: str) -> list:
@@ -3727,12 +3923,15 @@ def main() -> int:
     profile_dir = None
     if "--profile" in sys.argv:
         profile_dir = sys.argv[sys.argv.index("--profile") + 1]
+    if "--against" in sys.argv:
+        load_against(sys.argv[sys.argv.index("--against") + 1])
 
     k1 = k1_check(device, card)
     k1_dots = k1_dots_check(device, card)
     k2_check(device, card)
     codecs = codec_check(device, card)
     pq_lines = pq_check(device, card)
+    sq8_10m_check(device, card)
     corpus = build_corpus(card)
     if "--kernels" in sys.argv:
         kernels_on_index(corpus, device, card)

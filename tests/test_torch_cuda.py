@@ -42,7 +42,7 @@ from auncel_tpu_torch.ops.pq import PQCodebooks, decode_pq
 from auncel_tpu_torch.ops.sq import sq_decode_dev
 from auncel_tpu_torch.types import Metric
 from torch_parity import (ACC, D, K, MAX_TOPK, N_TEST, N_TRAIN, NLIST,
-                          ROW_CAP, make_data)
+                          ROW_CAP, dot_order_scores, make_data)
 
 
 def _card() -> torch.device:
@@ -353,6 +353,102 @@ def test_codec_decode_bitwise(codec, d):
         got, _ = fn(*args, Metric.IP, sq_scale=sc, sq_bias=bi)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def _decoded(args, sc, bi):
+    """The stored slots of coded_inputs' args as float32 vectors."""
+    db, d = args[0], args[4].shape[1]
+    if sc is not None:
+        return sq_decode_dev(db, d, sc, bi)
+    return db.float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entries", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("codec, d", [(c, d)
+                                      for c in ("f32", "bf16", "sq8", "sq4",
+                                                "sq6") for d in (96, 128)])
+def test_kernels_follow_the_dot_order(codec, d, entries):
+    """K1 and K2 give bitwise the dot order's model (torch_parity.
+    dot_order_dots, on the CPU) with every row probed by 1, 2, 3, 8 or 32
+    queries: the direct mode, the slot-a-thread route of small chunks,
+    the warp units of large ones and the crossover between them."""
+    dev = _card()
+    n, cap = 16, 256
+    args, sc, bi = coded_inputs(codec, n, cap, d, entries, n, dev,
+                                seed=entries + d)
+    args[6] = torch.arange(n, dtype=torch.int32,
+                           device=dev).repeat(entries, 1).contiguous()
+    cpu = [t.cpu() for t in args]
+    x = _decoded(cpu, None if sc is None else sc.cpu(),
+                 None if bi is None else bi.cpu())
+    for metric in (Metric.L2, Metric.IP):
+        want_s, want_i = dot_order_scores(cpu, x, metric)
+        for fn in (rowscan_scores, scan_scores):
+            got_s, got_i = fn(*args, metric, sq_scale=sc, sq_bias=bi)
+            torch.cuda.synchronize()
+            assert torch.equal(got_i.cpu(), want_i), fn.__name__
+            assert torch.equal(got_s.cpu(), want_s), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["f32", "sq8", "sq4", "sq6"])
+def test_one_query_alone_equals_inside_a_crowded_batch(codec):
+    """Each query's entries alone (the direct mode, one query a row: the
+    slot-a-thread route) give bitwise the scores and ids of the same
+    entries inside a batch of 48 queries on 10 rows (about 38 queries a
+    row: the warp units), for K1 and K2."""
+    dev = _card()
+    args, sc, bi = coded_inputs(codec, 10, 256, 96, 48, 8, dev, seed=17)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    args[6] = torch.argsort(torch.rand((48, 10), generator=gen, device=dev),
+                            dim=1)[:, :8].to(torch.int32).contiguous()
+    for fn in (rowscan_scores, scan_scores):
+        scores, ids = fn(*args, Metric.L2, sq_scale=sc, sq_bias=bi)
+        for b in range(0, 48, 5):
+            one = [t[b:b + 1] if i >= 4 else t for i, t in enumerate(args)]
+            s1, i1 = fn(*one, Metric.L2, sq_scale=sc, sq_bias=bi)
+            torch.cuda.synchronize()
+            assert torch.equal(s1, scores[b:b + 1]), (fn.__name__, b)
+            assert torch.equal(i1, ids[b:b + 1]), (fn.__name__, b)
+
+
+@pytest.mark.cuda
+def test_plan_over_40000_rows():
+    """An SQ8 layout of 40000 rows, most of them empty (the worklist's plan
+    then spans 40 blocks of lists): K1 in worklist mode matches the plain
+    version, equals K2 over the same rows, and equals bitwise each query
+    alone (the direct mode)."""
+    dev = _card()
+    n_rows, cap, d, B, S = 40000, 32, 96, 64, 24
+    args, sc, bi = coded_inputs("sq8", n_rows, cap, d, B, S, dev, seed=9)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    full = torch.randperm(n_rows, generator=gen, device=dev)[:1500]
+    sizes = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+    sizes[full] = torch.randint(1, cap + 1, (1500,), generator=gen,
+                                device=dev, dtype=torch.int32)
+    args[3] = sizes
+    pick = torch.randint(0, 1500, (B, S), generator=gen, device=dev)
+    rows = full[pick].to(torch.int32)
+    rows[:, -4:] = torch.randint(0, n_rows, (B, 4), generator=gen,
+                                 device=dev, dtype=torch.int32)
+    rows[::5, -1] = -1
+    args[6] = rows.contiguous()
+    before = rowscan_scores.launches
+    scores, ids = rowscan_scores(*args, Metric.L2, sq_scale=sc, sq_bias=bi)
+    torch.cuda.synchronize()
+    assert rowscan_scores.launches == before + 1
+    want_s, want_i = rowscan_scores_ref(*args, Metric.L2, sc, bi)
+    assert torch.equal(ids, want_i)
+    torch.testing.assert_close(scores, want_s, rtol=1e-5, atol=1e-5)
+    k2_s, k2_i = scan_scores(*args, Metric.L2, sq_scale=sc, sq_bias=bi)
+    assert torch.equal(scores, k2_s) and torch.equal(ids, k2_i)
+    for b in range(0, B, 9):
+        one = [t[b:b + 1] if i >= 4 else t for i, t in enumerate(args)]
+        s1, i1 = rowscan_scores(*one, Metric.L2, sq_scale=sc, sq_bias=bi)
+        torch.cuda.synchronize()
+        assert torch.equal(s1, scores[b:b + 1]) and torch.equal(
+            i1, ids[b:b + 1])
 
 
 def _slice(device, storage="f32"):

@@ -191,3 +191,67 @@ def jax_hnsw_from_port(tidx):
     tidx.save(buf)
     buf.seek(0)
     return HNSWIndex.load(buf)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) on float32 tensors, rounded once: the product is exact
+    in float64, the sum is rounded to odd there (TwoSum's error term picks
+    the direction) and then to float32, which is a single rounding."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def dot_order_dots(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The kernels' dots of decoded slots ``x [T, C, d]`` with queries ``q
+    [T, d]`` (float32, d % 4 == 0), summed in their order: the partial of
+    lane j is an FMA chain over the groups of 4 dims j, j + 32, ... from 0,
+    and the 32 partials add as a butterfly (j with j + 16, then 8, 4, 2,
+    1 apart). Both scans give every slot these bits on their float4
+    routes, whatever the chunk of queries around it."""
+    T, C, d = x.shape
+    ng = d // 4
+    xg = x.reshape(T, C, ng, 4)
+    qg = q.reshape(T, 1, ng, 4).expand(T, C, ng, 4)
+    part = torch.zeros((T, C, 32), dtype=torch.float32, device=x.device)
+    for g in range(ng):
+        a = part[:, :, g % 32]
+        for i in range(4):
+            a = fma32(xg[:, :, g, i], qg[:, :, g, i], a)
+        part[:, :, g % 32] = a
+    h = 16
+    while h >= 1:
+        part = part[..., :h] + part[..., h:2 * h]
+        h //= 2
+    return part[..., 0]
+
+
+def dot_order_scores(args, x: torch.Tensor, metric) -> tuple:
+    """Scores and ids of the scans' contract (K2's args, rows or lists)
+    with ``dot_order_dots`` for the dots: ``x`` is ``db`` decoded to
+    float32; the L2 score ``(q_sq + db_sq) - 2 dot`` rounded step by step
+    and clamped at 0, dead slots at the metric's worst value and id -1."""
+    db, db_sq, ids, sizes, q, q_sq, lists = args
+    B, S = lists.shape
+    cap = db.shape[1]
+    sel = lists.long().clamp(0, db.shape[0] - 1)
+    dots = dot_order_dots(x[sel].reshape(B * S, cap, -1),
+                          q.repeat_interleave(S, 0)).reshape(B, S, cap)
+    if metric.name == "L2":
+        sc = ((q_sq[:, None, None] + db_sq[sel]) - 2.0 * dots).clamp_min(0)
+    else:
+        sc = dots
+    live = ((lists[:, :, None] >= 0)
+            & (torch.arange(cap, device=db.device)[None, None, :]
+               < sizes[sel][:, :, None])
+            & (ids[sel] >= 0))
+    worst = float("inf") if metric.name == "L2" else float("-inf")
+    return (torch.where(live, sc, worst).reshape(B, -1),
+            torch.where(live, ids[sel], -1).reshape(B, -1))
