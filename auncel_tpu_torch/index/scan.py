@@ -12,7 +12,11 @@ kernels score, chosen by the layout the caller holds:
 Both take one contract: scores and ids of the live slots of each probed
 list (row), from the STORED norms ``db_sq``, so every term but the dot is
 bitwise the JAX package's; a probe slot past the query's limit is passed as
-list id -1 and read by neither.
+list id -1 and read by neither. Each chunk's candidates merge into the
+running top-k through ``ops/topk.py::merge_topk_verified``, as the JAX
+package merges them (``auncel_tpu/index/scan.py:301-308``): on the card a
+third hand-written kernel (``kernels/topk_merge.py``) that selects without
+building the concatenation, bitwise the stable sort's result.
 
 ``limit`` carries the per-query probe budget: probe slot ``ik`` contributes
 iff ``ik < limit[b]``, so a batch runs one shape while each query scans
@@ -48,7 +52,8 @@ import torch
 from auncel_tpu_torch.types import Metric, worst_value
 from auncel_tpu_torch.ops.distance import pairwise_scores, sqnorms
 from auncel_tpu_torch.ops.pq import PQCodebooks, encode_pq
-from auncel_tpu_torch.ops.topk import init_topk, topk_scores
+from auncel_tpu_torch.ops.topk import (init_topk, merge_topk_verified,
+                                       topk_scores)
 from auncel_tpu_torch.kernels.rowscan import rowscan_scores
 from auncel_tpu_torch.kernels.scan_scores import (
     decode_slots, popcount8, scan_scores)
@@ -205,8 +210,7 @@ def scan_probe_range(
         scores, sub_ids = (rowscan_scores if rows else scan_scores)(
             arrays.db, arrays.db_sq, arrays.vec_ids, arrays.list_sizes, q,
             q_sq, lists, metric, **codec)
-        vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
-                                torch.cat([ids, sub_ids], dim=-1), k, metric)
+        vals, ids = merge_topk_verified(vals, ids, scores, sub_ids, k, metric)
     return vals, ids
 
 
@@ -301,10 +305,12 @@ def masked_full_scan(rows: RowArrays, row_list: torch.Tensor,
     (query, vector) pair is a candidate iff the vector's list ranks below
     the query's budget: the gather tail's candidate set, so the result is
     the same top-k up to the product's rounding. Blocks of ``block_rows``
-    rows, ``merge_blocks`` blocks per exact merge; a merge is skipped when
-    no candidate in its window beats any query's current k-th (exact: the
-    skipped candidates lose to every kept one). One host sync per merge
-    window. Returns (vals [B, k], ids)."""
+    rows, ``merge_blocks`` blocks per exact merge (``merge_topk_verified``:
+    the merge kernel on the card, where the JAX package keeps the stable
+    sort; the same bits); a merge is skipped when no candidate in its
+    window beats any query's current k-th (exact: the skipped candidates
+    lose to every kept one). One host sync per merge window. Returns (vals
+    [B, k], ids)."""
     check_storage(rows)
     B = q.shape[0]
     R = rows.vec_ids.shape[0]
@@ -324,9 +330,8 @@ def masked_full_scan(rows: RowArrays, row_list: torch.Tensor,
         else:
             improving = (scores.amax(1) > vals[:, k - 1]).any()
         if bool(improving):
-            vals, ids = topk_scores(torch.cat([vals, scores], dim=-1),
-                                    torch.cat([ids, sub_ids], dim=-1), k,
-                                    metric)
+            vals, ids = merge_topk_verified(vals, ids, scores, sub_ids, k,
+                                            metric)
     return vals, ids
 
 

@@ -4,7 +4,9 @@
 Results stay sorted best-first. Ties keep the FIRST occurrence, as
 ``lax.top_k`` does (``torch.topk`` does not promise an order among equal
 values), so selection is a stable sort on the score. Pad slots carry the
-metric's worst value and id -1.
+metric's worst value and id -1. ``merge_topk_verified``, the probe scan's
+running merge, gives the same bits by a hand-written selection kernel on
+the card (``kernels/topk_merge.py``).
 """
 
 import torch
@@ -42,6 +44,21 @@ def merge_topk(vals_a: torch.Tensor, ids_a: torch.Tensor,
     """Merge two best-first candidate sets into the top-k of their union."""
     return topk_scores(torch.cat([vals_a, vals_b], dim=-1),
                        torch.cat([ids_a, ids_b], dim=-1), k, metric)
+
+
+def merge_topk_verified(rvals: torch.Tensor, rids: torch.Tensor,
+                        scores: torch.Tensor, ids: torch.Tensor, k: int,
+                        metric: Metric) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k merge of a running result ``[..., kr]`` with a wide
+    candidate window ``[..., n]``: bit for bit ``topk_scores`` over their
+    concatenation, values and ids. The JAX package proves an approximate
+    selection exact by a certificate and sorts when it fails; here the
+    card runs an exact selection kernel that never builds the
+    concatenation (``kernels/topk_merge.py``; k up to its ``MAX_K``), and
+    the CPU the stable sort."""
+    # imported here: the kernel's module takes merge_topk from this one
+    from auncel_tpu_torch.kernels.topk_merge import topk_merge
+    return topk_merge(rvals, rids, scores, ids, k, metric)
 
 
 def sort_scores(vals: torch.Tensor, ids: torch.Tensor,

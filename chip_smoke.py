@@ -15,7 +15,11 @@ residual and plain, without and with the polysemous filter; K1 and K2 on
 SQ8 codes at synthetic layouts of the recorded 10M SQ8 calls ([k1 sq8
 synth], [k2 sq8 synth]: the window's largest row scan, batch 1, the
 sharded window's largest, a training chunk, the sharded fixed call), each
-with the device time of the worklist's kernels; the bounded-search
+with the device time of the worklist's kernels; the merge kernel
+(csrc/topk_merge.cu, the running top-k merge of scan_probe_range) at the
+widths of the main path's merges on uniform, tied and all-dead chunks
+([topk synth]), bitwise its plain version and timed against it and
+torch.topk; the bounded-search
 main path on the multi-row layout (K1 in search, K2 in profile
 training): calibration with its
 measured dense crossover, the held-out window through the one-shot engine
@@ -23,6 +27,11 @@ and batch-1 windows, then
   [oneshot]        the 0.9 window, one-shot against the wave engine, K1
                    at the worklists its A1 waves recorded, and the window
                    against itself with its row scans on the dots route;
+                   [topk] the merge kernel at every merge of the window,
+                   bitwise its plain version (the concatenation and the
+                   stable sort, the merge before the kernel) or the run
+                   fails, timed against it and torch.topk, with the
+                   bound, the sums over the window and the largest merge;
   [oneshot strict] the window at bound 1.0 with stragglers past nlist/8,
                    one-shot against the wave engine, K1 at the worklists
                    its waves and rounds recorded, the window against
@@ -115,7 +124,9 @@ then
                    nprobe search on the dense route against the gathers
                    and with max_codes, and K1 and K2 on the codes at
                    worklists recorded from this path (K1 with the device
-                   time of the worklist's kernels beside each call);
+                   time of the worklist's kernels beside each call); the
+                   [topk] lines of the window's merges, of 5 batch-1
+                   queries' and of a training chunk's largest;
   [pq 10M]         the same corpus with residual IVFPQ (IVF1024,PQ16,
                    polysemous codebooks) on the [sq8 10M] phase's coarse
                    centroids, served by the padded engines with K2 on
@@ -128,7 +139,8 @@ then
                    the run fails; the query codes' encode timed), and
                    K2 against its plain version at calls recorded from
                    this path (the window's largest, batch 1, a training
-                   chunk, the largest filtered call at ht 48 and 64);
+                   chunk, the largest filtered call at ht 48 and 64)
+                   and the [topk] lines of the window's merges;
                    unfiltered, its recall@10 by ids against the
                    float ground truth is [pqr 10M]'s floor;
   [pqr 10M]        "IVF1024,PQ16+16" (IVFPQ re-ranked by a refinement PQ,
@@ -186,7 +198,9 @@ then
 Every path is driven through the port's public entry points on their
 default device, with the kernels' launch counts set to 0 just before it
 and read just after (the launches that compare K1 with other routes are
-not counted). Exits non-zero
+not counted); every path that runs scan_probe_range must launch the
+merge kernel, once for every merge index/scan.py makes (a counter wraps
+its merge_topk_verified), so none sorts. Exits non-zero
 when there is no CUDA device or any phase fails. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel.
 
@@ -438,6 +452,73 @@ def sq8_10m_check(device, card: str) -> dict:
                             codec=cd, label=f"{kernel} sq8 synth",
                             worklist=True)
         del args, cd
+        torch.cuda.empty_cache()
+    return out
+
+
+# (name, B, running k, chunk width, k): the merge kernel at the widths the
+# recorded merges of the main path take (PERF.md section 6): the 10M SQ8
+# window's largest (B 256 x 256 row slots x row_cap 256), its batch 1 (64
+# row slots), the PQ16 window's (B 1000 x one list of cap 19736), a 10M
+# training chunk (B 100 x 8 x 19736), a 1M window's (B 1000 x 4 x 256), a
+# chunk narrower than k, and k 10
+TOPK_SHAPES = (("10M window", 256, 100, 65536, 100),
+               ("10M batch 1", 1, 100, 16384, 100),
+               ("PQ window", 1000, 100, 19736, 100),
+               ("10M training chunk", 100, 100, 157888, 100),
+               ("1M window", 1000, 100, 1024, 100),
+               ("narrow", 1000, 100, 50, 100),
+               ("k 10", 1000, 10, 19736, 10))
+
+
+def synthetic_merge(device, B: int, kr: int, n: int, k: int, kind: str,
+                    seed: int) -> tuple:
+    """A merge's inputs on the card (L2): a running result half full
+    (sorted values, then the worst value and id -1) and a chunk of uniform
+    scores of which a tenth are dead (the worst value, id -1); ``kind``
+    "ties" rounds the scores to four levels, "worst" makes every chunk
+    slot dead."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    inf = float("inf")
+    half = kr // 2
+    rv = torch.full((B, kr), inf, device=device)
+    ri = torch.full((B, kr), -1, dtype=torch.int32, device=device)
+    rv[:, :half] = torch.sort(torch.rand((B, half), generator=g,
+                                         device=device), dim=1).values * 0.1
+    ri[:, :half] = torch.arange(half, dtype=torch.int32, device=device)
+    sv = torch.rand((B, n), generator=g, device=device)
+    if kind == "ties":
+        sv = torch.round(sv * 3)
+    si = torch.randint(0, 1 << 30, (B, n), generator=g, device=device,
+                       dtype=torch.int32)
+    dead = torch.rand((B, n), generator=g, device=device) < (
+        1.0 if kind == "worst" else 0.1)
+    sv = torch.where(dead, inf, sv)
+    si = torch.where(dead, -1, si)
+    return rv, ri, sv, si
+
+
+def topk_check(device, card: str) -> dict:
+    """The merge kernel at TOPK_SHAPES on synthetic inputs: uniform scores,
+    then ties and an all-dead chunk, each bitwise its plain version, timed
+    against it and torch.topk: the [topk synth] lines. Returns the numbers
+    by name."""
+    from auncel_tpu_torch import Metric
+    out = {}
+    for name, B, kr, n, k in TOPK_SHAPES:
+        for kind in ("uniform", "ties", "worst"):
+            call = ("synthetic", *synthetic_merge(device, B, kr, n, k, kind,
+                                                  seed=9), k, Metric.L2)
+            r = topk_compare(f"{name} {kind}", call, card,
+                             reps=50 if B * n <= 1 << 16 else 10)
+            log(f"[topk synth] {name}, {kind}: B {B}, running {kr}, chunk "
+                f"{n}, k {k}: kernel {r['ms']:.4f} ms "
+                f"({100 * r['bound_ms'] / r['ms']:.1f} % of its bound "
+                f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms "
+                f"({r['plain_ms'] / r['ms']:.2f}x), torch.topk "
+                f"{r['library_ms']:.4f} ms; bitwise equal [{card}]")
+            out[(name, kind)] = r
+            del call
         torch.cuda.empty_cache()
     return out
 
@@ -1020,11 +1101,35 @@ def synced(fn):
     return out, time.perf_counter() - t0
 
 
+class ScanMerges:
+    """Counts the calls index/scan.py makes to merge_topk_verified (from
+    scan_probe_range and masked_full_scan), once ``count_scan_merges`` has
+    wrapped it. On the card every such call launches the merge kernel."""
+    launches = 0
+
+
+SCAN_MERGES = ScanMerges()
+
+
+def count_scan_merges() -> None:
+    """Wraps index/scan.py's merge_topk_verified so that each call counts
+    in SCAN_MERGES."""
+    import auncel_tpu_torch.index.scan as scan
+    real = scan.merge_topk_verified
+
+    def counting(*args, **kw):
+        SCAN_MERGES.launches += 1
+        return real(*args, **kw)
+    scan.merge_topk_verified = counting
+
+
 def kernel_wrappers() -> dict:
     from auncel_tpu_torch.kernels.rowscan import rowscan_dots, rowscan_scores
     from auncel_tpu_torch.kernels.scan_scores import scan_scores
+    from auncel_tpu_torch.kernels.topk_merge import topk_merge
     return {"rowscan_scores": rowscan_scores, "rowscan_dots": rowscan_dots,
-            "scan_scores": scan_scores}
+            "scan_scores": scan_scores, "topk_merge": topk_merge,
+            "scan_merges": SCAN_MERGES}
 
 
 def launch_counts() -> dict:
@@ -1094,7 +1199,8 @@ def engine_stage() -> str:
     while f is not None:
         names.add(f.f_code.co_name)
         f = f.f_back
-    for fn, stage in (("_tail_rounds", "tail round"), ("_a2_rounds", "A2"),
+    for fn, stage in (("masked_full_scan", "dense pass"),
+                      ("_tail_rounds", "tail round"), ("_a2_rounds", "A2"),
                       ("bounded_oneshot_mr", "A1 wave")):
         if fn in names:
             return stage
@@ -1159,11 +1265,141 @@ def k1_recorded(label: str, calls: list, card: str,
     return tot
 
 
+def record_merges(fn) -> list:
+    """Run fn and return every merge scan_probe_range made, as (engine
+    stage, rvals, rids, scores, ids, k, metric): the running result copied,
+    the chunk's candidates (fresh tensors of the scan) by reference."""
+    import auncel_tpu_torch.index.scan as scan
+    real = scan.merge_topk_verified
+    calls = []
+
+    def record(rvals, rids, scores, ids, k, metric):
+        calls.append((engine_stage(), rvals.clone(), rids.clone(), scores,
+                      ids, k, metric))
+        return real(rvals, rids, scores, ids, k, metric)
+
+    scan.merge_topk_verified = record
+    try:
+        fn()
+    finally:
+        scan.merge_topk_verified = real
+    return calls
+
+
+def merge_bound(rv, sv, k: int) -> tuple:
+    """The merge's least time: a row's running and chunk values read once
+    (4 bytes a slot), the k winners' ids gathered (4) and k values and ids
+    written (8); one compare a value for the operations."""
+    B, kr = rv.shape
+    n = sv.shape[1]
+    return bound(B * (4 * (kr + n) + 12 * k), B * (kr + n))
+
+
+def topk_compare(label: str, call: tuple, card: str, reps: int) -> dict:
+    """The merge kernel at one recorded merge: bitwise its plain version
+    (values and ids), or the run fails; timed in turns with the plain
+    version (the concatenation and the stable sort, the main path's merge
+    before the kernel), and torch.topk on the concatenation built
+    beforehand (the library call: equal values, no promise on the order of
+    ties)."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.kernels.topk_merge import topk_merge, topk_merge_ref
+    stage, rv, ri, sv, si, k, metric = call
+    with uncounted():
+        got = topk_merge(rv, ri, sv, si, k, metric)
+        want = topk_merge_ref(rv, ri, sv, si, k, metric)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0].view(torch.int32),
+                          want[0].view(torch.int32))
+              and torch.equal(got[1], want[1]),
+              f"[topk] {label}: the kernel differs from its plain version")
+        err = float((got[0] - want[0]).abs().nan_to_num(0.0).max())
+        cat_v = torch.cat([rv, sv], dim=-1)
+        t_k, t_p = time_pair(lambda: topk_merge(rv, ri, sv, si, k, metric),
+                             lambda: topk_merge_ref(rv, ri, sv, si, k,
+                                                    metric), reps)
+        t_lib = cuda_time_ms(lambda: torch.topk(
+            cat_v, k, dim=-1, largest=metric is Metric.IP, sorted=True), reps)
+        del cat_v
+    b_ms, b_by = merge_bound(rv, sv, k)
+    return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
+            "stage": stage, "shape": (rv.shape[0], rv.shape[1], sv.shape[1],
+                                      k)}
+
+
+# [topk] numbers by window, for the kernels line
+TOPK_RECORDS: dict = {}
+
+
+def topk_recorded(label: str, calls: list, card: str, reps: int = 5) -> dict:
+    """[topk]: the merge kernel at every merge a window made (topk_compare
+    at each), then the sums over the window, each route's device time over
+    all the merges (torch.profiler), and the largest merge's numbers, which
+    it returns (and keeps in TOPK_RECORDS under ``label``)."""
+    from auncel_tpu_torch.kernels.topk_merge import topk_merge, topk_merge_ref
+    check(len(calls) > 0, f"[topk] {label}: no merge recorded")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    tot = {key: 0.0 for key in keys}
+    res = []
+    for i, call in enumerate(calls):
+        r = topk_compare(f"{label}, merge {i + 1} of {len(calls)}", call,
+                         card, reps)
+        for key in keys:
+            tot[key] += r[key]
+        res.append(r)
+    dev = {}
+    with uncounted():
+        for name, fn in (("kernel", topk_merge), ("plain", topk_merge_ref)):
+            t = device_ms(lambda: [fn(*c[1:]) for c in calls], 3)
+            dev[name] = "not measured" if t is None else f"{t:.3f} ms"
+    big = max(res, key=lambda r: r["shape"][0] * r["shape"][2])
+    B, kr, n, k = big["shape"]
+    log(f"[topk] {label}, the largest of {len(calls)} merges ({big['stage']};"
+        f" B {B}, running {kr}, chunk {n}, k {k}): kernel {big['ms']:.4f} ms "
+        f"({100 * big['bound_ms'] / big['ms']:.1f} % of its bound "
+        f"{big['bound_ms']:.4f} ms), plain (concatenation and stable sort) "
+        f"{big['plain_ms']:.4f} ms, torch.topk {big['library_ms']:.4f} ms "
+        f"[{card}]")
+    share = 100 * tot["bound_ms"] / tot["ms"]
+    log(f"[topk] {label}, all {len(calls)} merges, each bitwise equal to the "
+        f"plain version: kernel {tot['ms']:.3f} ms ({share:.1f} % of the "
+        f"summed bound {tot['bound_ms']:.3f} ms), "
+        f"plain {tot['plain_ms']:.3f} ms ({tot['plain_ms'] / tot['ms']:.2f}x),"
+        f" torch.topk {tot['library_ms']:.3f} ms; device time over the "
+        f"merges (profiler): kernel {dev['kernel']}, plain {dev['plain']} "
+        f"[{card}]")
+    stages = {}
+    for r in res:
+        st = stages.setdefault(r["stage"], [0, 0.0, 0.0])
+        st[0] += 1
+        st[1] += r["ms"]
+        st[2] += r["plain_ms"]
+    log(f"[topk] {label}, by engine stage (merges, kernel ms, plain ms): "
+        + "; ".join(f"{st} {n}, {a:.3f}, {b:.3f}"
+                    for st, (n, a, b) in stages.items()) + f" [{card}]")
+    out = {key: big[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by")}
+    out["window"] = tot
+    TOPK_RECORDS[label] = out
+    return out
+
+
 def counted(fn):
     """(fn(), launches of each kernel while it ran)."""
     before = launch_counts()
     out = fn()
     return out, {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def check_merges(label: str, n: dict) -> None:
+    """A path that ran scan_probe_range merged on the merge kernel: it
+    launched, once for every merge index/scan.py made, so none sorted."""
+    check(n.get("topk_merge", 0) > 0,
+          f"[{label}] the merge kernel never launched: {n}")
+    check(n.get("scan_merges", 0) == n.get("topk_merge", 0),
+          f"[{label}] {n.get('scan_merges')} merges in index/scan.py, "
+          f"{n.get('topk_merge')} launches of the merge kernel")
 
 
 def serve_window(es, gt_D, card: str, label: str,
@@ -1303,6 +1539,8 @@ def multirow_path(c: dict, card: str, profile_dir: str | None) -> dict:
           and lat.get("rowscan_scores", 0) > 0, "search never launched K1")
     check(launches["rowscan_dots"] == 0,
           "the multi-row path launched rowscan_dots")
+    for part in (train, window["launches"], lat):
+        check_merges("multirow", part)
     if profile_dir:
         profile_search(es, profile_dir, card, "multirow")
     return launches
@@ -1349,6 +1587,8 @@ def padded_path(c: dict, card: str, profile_dir: str | None) -> dict:
     check(window["launches"]["scan_scores"] > 0,
           "the two-phase window never launched K2")
     check(lat.get("scan_scores", 0) > 0, "batch-1 never launched K2")
+    for part in (train, window["launches"], lat):
+        check_merges("padded", part)
     check(launches["rowscan_scores"] == 0 and launches["rowscan_dots"] == 0,
           "the padded path launched K1")
     if profile_dir:
@@ -1561,6 +1801,7 @@ def ondisk_phase(es, c: dict, card: str) -> dict:
             check(bad == 0 and rel <= 1e-5,
                   f"[ondisk fixed] nprobe {nprobe} differs from resident")
             check(n["scan_scores"] > 0, f"[ondisk fixed] launches {n}")
+            check_merges("ondisk fixed", n)
 
         acc = np.full(N_TEST_Q, 1.0 - EPS, np.float32)
         od.attach_profile(es.traces, es.multipler, es.std_m, MAX_TOPK)
@@ -1772,6 +2013,7 @@ def shards_phase(pidx, c: dict, card: str) -> None:
         f"[{card}]")
     check(close.all() and bad == 0, "[shards] differs from the whole index")
     check(n["scan_scores"] > 0, f"[shards] launches {n}")
+    check_merges("shards", n)
 
 
 def held_out() -> slice:
@@ -1863,6 +2105,9 @@ def oneshot_phase(es, gt_D, card: str, profile_dir: str | None) -> dict:
     with uncounted():
         k1_recorded("0.9 window", calls, card)
         against_dots_route("oneshot", lambda: oneshot_route(es), card)
+    del calls
+    topk_recorded("1M 0.9 window", record_merges(lambda: oneshot_route(es)),
+                  card)
     es.dense_auto = saved
     return {"oneshot_ms": ms_one, "wave_ms": ms_wave, "n_scanned": one[2]}
 
@@ -2059,6 +2304,7 @@ def time_mode_phase(es, card: str) -> dict:
     check(np.array_equal(spent, want), "time_search spent other counts")
     check(launches.get("rowscan_scores", 0) > 0, "time_search never "
           "launched K1")
+    check_merges("time mode", launches)
     es.set_queries(es.num, es.queries, saved)
     # a fixed nprobe: the tail rounds against the fixed-nprobe scan
     nprobe = 16
@@ -2103,6 +2349,7 @@ def padded_time_mode(es, card: str) -> None:
     check(np.array_equal(spent, want), "padded time_search counts")
     check(launches.get("scan_scores", 0) > 0, "padded time_search never "
           "launched K2")
+    check_merges("padded time mode", launches)
     es.set_queries(es.num, es.queries, saved[0])
     es.per_probe_ms, es._time_cost_table = saved[1:]
 
@@ -2281,6 +2528,8 @@ def imi_phase(c: dict, card: str) -> dict:
     check(train["scan_scores"] > 0, "IMI profile training never launched K2")
     check(window["rowscan_scores"] > 0 and lat.get("rowscan_scores", 0) > 0,
           "IMI search never launched K1")
+    for part in (train, window, lat):
+        check_merges("imi", part)
     with uncounted():
         calls = record_row_scans(lambda: es.search(N_TRAIN_Q, N_TEST_Q))
         big = max(calls, key=lambda x: int((x[1][6] >= 0).sum()))
@@ -2330,6 +2579,7 @@ def twolayer_phase(c: dict, card: str) -> dict:
         lambda: synced(lambda: ivf.search(xq[win], K, nprobe=32)))
     launches = launch_counts()
     check(n["scan_scores"] > 0, "the transferred index never launched K2")
+    check_merges("2layer", n)
     (_, I_tl), t_tl = synced(lambda: tl.search(xq[win], K))
     log(f"[2layer] Index2Layer({D}, {NLIST}, M=16): code size "
         f"{tl.code_size} B, cap {a.cap}; transferred reconstructions "
@@ -2643,6 +2893,7 @@ def ivf_hnsw_phase(c: dict, card: str) -> dict:
                             int((probes < 0).sum()))
         launches = launch_counts()
         check(launches["scan_scores"] > 0, "[ivf hnsw] K2 never launched")
+        check_merges("ivf hnsw", launches)
         with uncounted():
             idx.coarse_hnsw_m = None
             exact_rec = {n: id_recall(idx.search(q, K, nprobe=n)[1],
@@ -2824,6 +3075,8 @@ def sq8_10m_phase(card: str, profile_dir: str | None) -> dict:
     check(train["scan_scores"] > 0, "10M profile training never launched K2")
     check(window["launches"]["rowscan_scores"] > 0
           and lat.get("rowscan_scores", 0) > 0, "10M search never launched K1")
+    for part in (train, window["launches"], lat):
+        check_merges("sq8 10M", part)
     if profile_dir:
         profile_call(lambda: es.search(START10M, N_TEST_Q), profile_dir,
                      card, "sq8 10M window")
@@ -2920,6 +3173,19 @@ def kernels_10m(es, xq, card: str) -> dict:
         f"10M training chunk ({len(k2_calls)} calls; B x n_slots "
         f"{tuple(chunk[1][6].shape)})", chunk[1], chunk[2], card, reps=10,
         terms_tol=True, codec=chunk[3], label="k2 sq8")
+    del calls, calls1, big, k2_calls, chunk
+    torch.cuda.empty_cache()
+    topk_recorded("sq8 10M window", record_merges(
+        lambda: es.search(START10M, N_TEST_Q)), card)
+    topk_recorded("sq8 10M batch 1 (5 queries)", record_merges(
+        lambda: [es.search(START10M + i, 1) for i in range(5)]), card)
+    merges = record_merges(
+        lambda: train_profile(idx.arrays, q, es.gt_D[:100], MAX_TOPK,
+                              idx.metric, n_batches=1))
+    topk_recorded("sq8 10M training chunk", [max(
+        merges, key=lambda c: c[3].numel())], card)
+    del merges
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3025,6 +3291,8 @@ def pq_10m_phase(corpus: dict, card: str, profile_dir: str | None,
     check(window["launches"]["scan_scores"] > 0
           and lat.get("scan_scores", 0) > 0 and fixed["scan_scores"] > 0,
           "PQ search never launched K2")
+    for part in (train, window["launches"], lat, fixed):
+        check_merges("pq 10M", part)
     check(launches["rowscan_scores"] == 0 and launches["rowscan_dots"] == 0,
           "the PQ path launched K1, whose layout refuses PQ")
     if profile_dir:
@@ -3188,6 +3456,9 @@ def kernels_pq10m(es, xq, card: str) -> dict:
             label="k2 pq")
         del calls, args, kw
         torch.cuda.empty_cache()
+    topk_recorded("pq 10M window", record_merges(
+        lambda: es.search(START10M, N_TEST_Q)), card)
+    torch.cuda.empty_cache()
     return {**out.pop("window"), **out}
 
 
@@ -3249,6 +3520,7 @@ def pqr_10m_phase(corpus: dict, gt_ids: np.ndarray, pq_recall: float,
                                                        nprobe=PQR_NPROBE))
     launches = launch_counts()
     check(launches["scan_scores"] > 0, "IVFPQR search never launched K2")
+    check_merges("pqr 10M", launches)
     k2 = round(idx.k_factor * K)
     warm = [synced(lambda: idx.search(q, K, nprobe=PQR_NPROBE))[1]
             for _ in range(3)]
@@ -3509,6 +3781,8 @@ def sharded_10m_phase(corpus: dict, card: str, sq8_window_ms: float
           "sharded bounded search never launched K1")
     check(launches["scan_scores"] > train["scan_scores"],
           "sharded fixed-nprobe search never launched K2")
+    for part in (train, n, launches):
+        check_merges("sharded 10M", part)
     return {"launches": launches, "kernels": {"rowscan_scores": k1,
                                               "scan_scores": k2}}
 
@@ -3555,6 +3829,7 @@ def dist_phase(card: str) -> None:
           f"dist_bench rows {rows}")
     check(launches["rowscan_scores"] > 0 and launches["scan_scores"] > 0,
           f"dist_bench launches {launches}")
+    check_merges("dist", launches)
     log(f"[dist] synth10K, nlist 64, 64 queries at bound 0.9: "
         + ", ".join(f"{S} shards {ms:.3f} ms/query" for S, ms in rows)
         + f"; fig16.png drawn: {fig}; {t:.1f} s; launches {launches} "
@@ -3695,6 +3970,7 @@ def eval_phase(card: str) -> dict:
                 f"bound_ok={res['bound_ok']}: {UNPROMISED}")
             check(n["rowscan_scores"] > 0 and n["scan_scores"] > 0,
                   f"[eval bound] launches {n}")
+            check_merges("eval bound", n)
 
             with last_call(LearnedTermination, "search") as lt_search, \
                     last_call(LearnedTermination, "_features") as lt_feat, \
@@ -3728,6 +4004,7 @@ def eval_phase(card: str) -> dict:
                 f"{auncel['min_recall'] >= 1.0 - EPS}: {UNPROMISED}")
             check(n["rowscan_scores"] > 0 and n["scan_scores"] > 0,
                   f"[eval compare] launches {n}")
+            check_merges("eval compare", n)
             with uncounted():
                 kernels = eval_kernels(lt_search, lt_feat, card)
 
@@ -3824,13 +4101,24 @@ def profile_call(fn, out_dir: str, card: str, label: str) -> None:
     # of the kernels it launched
     dev_us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
+    # the sorts' kernels and the merge kernel's, by a piece of their names
+    part = {"sorts": 0.0, "merge kernel": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "topk_merge" in e.key:
+            part["merge kernel"] += e.self_device_time_total
+        elif "sort" in e.key.lower():
+            part["sorts"] += e.self_device_time_total
+    shares = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / max(dev_us, 1):.1f}"
+                       f" %)" for k, v in part.items())
     name = label.replace(" ", "_")
     with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(f"{card}\nwall {wall * 1e3:.2f} ms, device "
-                f"{dev_us / 1e3:.2f} ms\n{table}\n")
+                f"{dev_us / 1e3:.2f} ms; {shares}\n{table}\n")
     log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, device busy "
         f"{dev_us / 1e3:.2f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f}"
-        f"%) [{card}]")
+        f"%); of the device time {shares} [{card}]")
 
 
 # the worklist's kernels (csrc/worklist.cuh) by a piece of their names:
@@ -3910,7 +4198,7 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    sources = ("rowscan", "scan_scores")
+    sources = ("rowscan", "scan_scores", "topk_merge")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.load, sources))  # one nvcc each, all at once
     log(f"[build] {', '.join(f'{n}.cu' for n in sources)} built in "
@@ -3925,6 +4213,7 @@ def main() -> int:
         profile_dir = sys.argv[sys.argv.index("--profile") + 1]
     if "--against" in sys.argv:
         load_against(sys.argv[sys.argv.index("--against") + 1])
+    count_scan_merges()
 
     k1 = k1_check(device, card)
     k1_dots = k1_dots_check(device, card)
@@ -3932,6 +4221,7 @@ def main() -> int:
     codecs = codec_check(device, card)
     pq_lines = pq_check(device, card)
     sq8_10m_check(device, card)
+    topk_check(device, card)
     corpus = build_corpus(card)
     if "--kernels" in sys.argv:
         kernels_on_index(corpus, device, card)
@@ -4021,6 +4311,8 @@ def main() -> int:
                                     "bound_ms", "bound_by")}
     k1_src, k2_src = ("auncel_tpu_torch/csrc/rowscan.cu",
                       "auncel_tpu_torch/csrc/scan_scores.cu")
+    merge_src = "auncel_tpu_torch/csrc/topk_merge.cu"
+    merge_tpu = "auncel_tpu/ops/topk.py:67"
     k1_tpu, k2_tpu = ("auncel_tpu/pallas_kernels/rowscan.py:77",
                       "auncel_tpu/pallas_kernels/scan_scores.py:89")
     kernels = [
@@ -4072,6 +4364,17 @@ def main() -> int:
         {"name": "scan_scores sharded", "route": "cuda", "source": k2_src,
          "replaces": k2_tpu, "launches": sh["launches"]["scan_scores"],
          "library_ms": None, **numbers(sh["kernels"]["scan_scores"])}]
+    # the merge kernel: the largest merge of each recorded window, beside
+    # the launches of the path that window belongs to
+    for name, window, n in (
+            ("topk_merge", "1M 0.9 window", launches("topk_merge")),
+            ("topk_merge sq8", "sq8 10M window",
+             sq8["launches"]["topk_merge"]),
+            ("topk_merge pq", "pq 10M window", pq["launches"]["topk_merge"])):
+        rec = TOPK_RECORDS[window]
+        kernels.append({"name": name, "route": "cuda", "source": merge_src,
+                        "replaces": merge_tpu, "launches": n,
+                        "library_ms": rec["library_ms"], **numbers(rec)})
     # K2's other PQ instances: filtered, launched by [pq 10M fixed] at each
     # Hamming threshold, with the numbers of its largest call at ht 64;
     # d 256 / M 32 at its synthetic layout, in the comparisons only

@@ -17,7 +17,9 @@ CPU's, and searches on the card equal the CPU's on the same graph: flat,
 SQ8, PQ and two-level storage, binary HNSW, BIVF_HNSW and IVF_HNSW with
 K2); four shards of a ShardedIVF on one card against the CPU, data-
 parallel k-means on the card (bitwise repeatable) and the C API's demo on
-the card. The entry points' default device is checked everywhere. This file imports no jax, so it also runs where jax is not
+the card; the running top-k merge kernel (``csrc/topk_merge.cu``) bit for
+bit its plain version at batch 1 to 1024, chunks from below k to 160k,
+k up to 128, at every segment count, and its refusal of a larger k. The entry points' default device is checked everywhere. This file imports no jax, so it also runs where jax is not
 installed, without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1252,3 +1254,93 @@ def test_c_api_demo_runs_on_the_card():
     fixed, bounded = python_ids("cuda")
     np.testing.assert_array_equal(got["fixed"], fixed)
     np.testing.assert_array_equal(got["bounded"], bounded)
+
+
+def _merge_inputs(kind: str, B: int, kr: int, n: int, metric, dev, seed):
+    """A merge's inputs (numpy-made, then on the card): a running result
+    half full (sorted values, then the worst value and id -1) and a chunk
+    of ``kind``: "random", "ties" (four levels), "zeros" (+0.0 and -0.0
+    among worse values), "worst" (every slot the worst value), "masked"
+    (a few live slots among worst ones) or "nan" (a tenth NaN)."""
+    rng = np.random.RandomState(seed)
+    sgn = 1.0 if metric is Metric.L2 else -1.0
+    w = np.float32(np.inf * sgn)
+    half = kr // 2
+    rv = np.full((B, kr), w, np.float32)
+    rv[:, :half] = np.sort(rng.rand(B, half), 1) * 0.1 * sgn
+    ri = np.full((B, kr), -1, np.int32)
+    ri[:, :half] = np.arange(half)
+    s = rng.rand(B, n).astype(np.float32)
+    if kind == "ties":
+        s = np.round(s * 3)
+    elif kind == "zeros":
+        s = np.where(rng.rand(B, n) < 0.5, 0.0, -0.0)
+        s[rng.rand(B, n) < 0.7] = sgn
+    elif kind == "worst":
+        s[:] = w
+    elif kind == "masked":
+        s[rng.rand(B, n) < 0.99] = w
+    elif kind == "nan":
+        s[rng.rand(B, n) < 0.1] = np.nan
+    si = rng.randint(0, 1 << 30, (B, n)).astype(np.int32)
+    si[s == w] = -1
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (rv, ri, s.astype(np.float32), si))
+
+
+MERGE_KINDS = ("random", "ties", "zeros", "worst", "masked", "nan")
+
+
+def _merge_equal(args, k, metric):
+    from auncel_tpu_torch.kernels.topk_merge import topk_merge, topk_merge_ref
+    got = topk_merge(*args, k, metric)
+    want = topk_merge_ref(*args, k, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.IP])
+@pytest.mark.parametrize("B, n", [(1, 50), (1, 16384), (7, 3000),
+                                  (256, 65536), (1000, 19736), (1024, 1024),
+                                  (100, 160000)])
+def test_topk_merge_is_bitwise_its_plain_version(B, n, metric):
+    """The merge kernel against the stable sort of the concatenation, at
+    batch 1 to 1024 and chunks from below k to 160k, every kind of chunk,
+    k 1, 10, 100 and 128: values and ids bit for bit."""
+    from auncel_tpu_torch.kernels.topk_merge import topk_merge
+    dev = _card()
+    before = topk_merge.launches
+    for i, kind in enumerate(MERGE_KINDS):
+        for k in (1, 10, 100, 128):
+            _merge_equal(_merge_inputs(kind, B, k, n, metric, dev, i), k,
+                         metric)
+    assert topk_merge.launches == before + 4 * len(MERGE_KINDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seg", [1, 2, 3, 8, 64])
+def test_topk_merge_at_every_segment_count(n_seg, monkeypatch):
+    """Rows cut into 1 to 64 segments (the second launch merging them),
+    whatever the batch: the same bits."""
+    from auncel_tpu_torch.kernels import topk_merge as tm
+    dev = _card()
+    monkeypatch.setattr(tm, "segments", lambda *a: n_seg)
+    for i, kind in enumerate(MERGE_KINDS):
+        for B, n, k in ((3, 20000, 100), (64, 5000, 10), (2, 300, 128)):
+            _merge_equal(_merge_inputs(kind, B, k, n, Metric.L2, dev, i), k,
+                         Metric.L2)
+
+
+@pytest.mark.cuda
+def test_topk_merge_raises_above_its_k():
+    """k above MAX_K on a CUDA tensor raises (no fallback to the sort);
+    the CPU's plain version takes it."""
+    from auncel_tpu_torch.kernels.topk_merge import MAX_K, topk_merge
+    dev = _card()
+    args = _merge_inputs("random", 4, 10, 500, Metric.L2, dev, 0)
+    with pytest.raises(ValueError, match="k <="):
+        topk_merge(*args, MAX_K + 1, Metric.L2)
+    v, _ = topk_merge(*(a.cpu() for a in args), MAX_K + 1, Metric.L2)
+    assert v.shape == (4, MAX_K + 1)

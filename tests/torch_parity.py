@@ -255,3 +255,92 @@ def dot_order_scores(args, x: torch.Tensor, metric) -> tuple:
     worst = float("inf") if metric.name == "L2" else float("-inf")
     return (torch.where(live, sc, worst).reshape(B, -1),
             torch.where(live, ids[sel], -1).reshape(B, -1))
+
+
+def order_keys(v: torch.Tensor, ip: bool) -> torch.Tensor:
+    """The merge kernel's order-preserving keys of float32 values, as int64
+    holding a uint32: -0.0 as +0.0, every NaN as larger than +inf, inverted
+    for IP; a smaller key is a better value."""
+    u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where((u & 0x7FFFFFFF) > 0x7F800000, 0x7FC00000, u)
+    u = torch.where(u == 0x80000000, 0, u)
+    u = torch.where((u & 0x80000000) != 0, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return ~u & 0xFFFFFFFF if ip else u
+
+
+def radix_select(keys: torch.Tensor, k: int) -> tuple:
+    """The kernel's radix select over ``keys`` (more than k): four 8-bit
+    digits from the top, each a histogram of the keys that match the
+    digits so far. Returns (T, want): the k-th smallest key and how many
+    keys equal to it the k smallest take."""
+    prefix, mask, want = 0, 0, k
+    for shift in (24, 16, 8, 0):
+        match = (keys & mask) == prefix
+        hist = torch.bincount((keys[match] >> shift) & 0xFF, minlength=256)
+        cum = torch.cumsum(hist, 0)
+        digit = int(torch.searchsorted(cum, want))
+        want -= int(cum[digit - 1]) if digit > 0 else 0
+        prefix |= digit << shift
+        mask |= 0xFF << shift
+    return prefix, want
+
+
+def select_in_order(keys: torch.Tensor, pos: torch.Tensor, k: int) -> tuple:
+    """Keys and positions in position order -> their k smallest by (key,
+    position), still in position order: every key below the radix
+    threshold T, then the first keys equal to T."""
+    if keys.numel() <= k:
+        return keys, pos
+    T, want = radix_select(keys, k)
+    eq = keys == T
+    keep = (keys < T) | (eq & (torch.cumsum(eq.long(), 0) <= want))
+    return keys[keep], pos[keep]
+
+
+def topk_merge_model(rvals, rids, scores, ids, k: int, metric,
+                     n_seg: int, step: int = 2048, cap: int = 8320) -> tuple:
+    """The merge kernel's selection (``csrc/topk_merge.cu``) in plain
+    torch, row by row over the concatenation [running | chunk]: ``n_seg``
+    segments, each streamed in steps of ``step`` positions into a buffer
+    of ``cap``, keeping only keys below the current k-th and selecting
+    when the buffer holds more than k and no threshold exists yet or the
+    next step might not fit; then the segments' candidates in segment
+    order selected again, ranked by (key, position), the winners' values
+    and ids gathered by position (a metric-worst value with id -1) and
+    slots past the row filled with the worst value and -1."""
+    ip = metric.name == "IP"
+    worst = float("-inf") if ip else float("inf")
+    vals = torch.cat([rvals, scores], dim=-1)
+    all_ids = torch.cat([rids, ids], dim=-1)
+    B, n = vals.shape
+    out_v = torch.full((B, k), worst, dtype=torch.float32)
+    out_i = torch.full((B, k), -1, dtype=torch.int32)
+    keys = order_keys(vals, ip)
+    seg_len = -(-n // n_seg)
+    for b in range(B):
+        cand_k, cand_p = [], []
+        for s in range(n_seg):
+            lo, hi = min(n, s * seg_len), min(n, (s + 1) * seg_len)
+            bk = torch.empty(0, dtype=torch.int64)
+            bp = torch.empty(0, dtype=torch.int64)
+            thr = None
+            for p in range(lo, hi, step):
+                sk = keys[b, p:min(hi, p + step)]
+                sp = torch.arange(p, p + sk.numel())
+                if thr is not None:
+                    sp, sk = sp[sk < thr], sk[sk < thr]
+                bk, bp = torch.cat([bk, sk]), torch.cat([bp, sp])
+                if bk.numel() > k and (thr is None
+                                       or bk.numel() + step > cap):
+                    bk, bp = select_in_order(bk, bp, k)
+                    thr = int(bk.max())
+            bk, bp = select_in_order(bk, bp, k)
+            cand_k.append(bk)
+            cand_p.append(bp)
+        ck, cp = select_in_order(torch.cat(cand_k), torch.cat(cand_p), k)
+        order = torch.sort(ck, stable=True).indices  # ties: position order
+        win = cp[order]
+        v = vals[b, win]
+        out_v[b, :win.numel()] = v
+        out_i[b, :win.numel()] = torch.where(v == worst, -1, all_ids[b, win])
+    return out_v, out_i
