@@ -7,23 +7,26 @@ ids]), k, metric)``: values and ids best-first, ties to the earlier
 position (the running result's slots come first), -0.0 and +0.0 one key,
 NaN ranked as the largest value (as ``torch.sort`` ranks it), a winner
 whose value is the metric's worst keeps id -1, and slots past ``kr + n``
-get the worst value and id -1.
+get the worst value and id -1. Any k.
 
 Its kernel replaces ``auncel_tpu/ops/topk.py:67`` ``merge_topk_verified``,
 which is not a ``pallas_call``: on the TPU it is XLA's ``approx_min_k``
 under an exactness certificate, a selection that does not sort the window.
 The kernel is bound by device-memory bytes (each chunk value read once,
 ids read for the k winners only). It never builds the concatenation: a
-block streams a segment of a row and keeps, in shared memory, only the
-values that can still win; a radix select with ties taken in position
-order cuts them to k. A row takes several segments when the batch alone
-would not fill the card (``segments``), then a second launch merges them;
-see the source.
+block streams a segment of a row with 16-byte loads, filters each value
+against a bound of the row's k-th taken from the running result's first k
+slots (and shared by the row's segments), and keeps the few that pass as
+unique 64-bit (key, position) keys; a radix select cuts them to k, and
+the winners are ranked by counting (a bitonic sort above k 256). A row
+takes several segments when the batch alone would not fill the card
+(``segments``); the row's last segment merges them in the same launch.
+For k above 1024 the candidate buffers live in scratch; see the source.
 
 ``topk_merge`` runs the kernel for CUDA tensors and its plain version,
 ``topk_merge_ref``, for CPU tensors. A CUDA tensor never falls back: the
-kernel launches or the wrapper raises, for k above ``MAX_K`` too.
-``topk_merge.launches`` counts the calls that launched it.
+kernel launches or the wrapper raises. ``topk_merge.launches`` counts the
+calls that launched it.
 """
 
 import ctypes
@@ -35,10 +38,8 @@ from auncel_tpu_torch.kernels import build
 from auncel_tpu_torch.ops.topk import merge_topk
 from auncel_tpu_torch.types import Metric
 
-MAX_K = 128          # the kernel's kMaxK (a larger k: cudaErrorInvalidValue)
-MAX_SEGMENTS = 64    # its kMaxSegments
 SEGMENT_MIN = 2048   # positions a segment at least: one load step
-BLOCKS_PER_SM = 6    # blocks to launch a multiprocessor: several waves
+BLOCKS_PER_SM = 4    # resident blocks a multiprocessor (256 threads, 42 KB)
 
 
 # the plain PyTorch version: the stable-sort top-k of the concatenation
@@ -46,14 +47,11 @@ topk_merge_ref = merge_topk
 
 
 def segments(B: int, n_total: int, n_sm: int) -> int:
-    """Segments a row of ``n_total`` positions: one when B rows fill the
-    card, else enough for ``BLOCKS_PER_SM`` blocks a multiprocessor, each
-    of ``SEGMENT_MIN`` positions at least."""
-    target = BLOCKS_PER_SM * n_sm
-    if B >= target:
-        return 1
-    return max(1, min(-(-target // B), -(-n_total // SEGMENT_MIN),
-                      MAX_SEGMENTS))
+    """Segments a row of ``n_total`` positions: as many as fill the card's
+    resident blocks (``BLOCKS_PER_SM`` a multiprocessor) with B rows, each
+    of ``SEGMENT_MIN`` positions at least; one once B rows fill half."""
+    return max(1, min((BLOCKS_PER_SM * n_sm) // B,
+                      -(-n_total // SEGMENT_MIN)))
 
 
 def _check(rvals, rids, scores, ids, k):
@@ -88,8 +86,6 @@ def topk_merge(rvals: torch.Tensor, rids: torch.Tensor, scores: torch.Tensor,
     if len(devices) != 1 or dev.type != "cuda":
         raise ValueError(f"topk_merge needs all tensors on one CUDA device "
                          f"or all on the CPU, got {devices}")
-    if k > MAX_K:
-        raise ValueError(f"topk_merge's kernel takes k <= {MAX_K}, got {k}")
     lead = rvals.shape[:-1]
     kr, n = rvals.shape[-1], scores.shape[-1]
     if kr + n >= 2**31:
@@ -105,15 +101,17 @@ def topk_merge(rvals: torch.Tensor, rids: torch.Tensor, scores: torch.Tensor,
     rv, ri, sv, si = (t.reshape(B, t.shape[-1]).contiguous() for t in tensors)
     n_seg = segments(B, kr + n, _multiprocessors(dev))
     lib = _library()
-    n_scratch = lib.topk_merge_scratch_ints(B, k, n_seg)
-    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=dev)
+    n_scratch = lib.topk_merge_scratch_bytes(B, k, n_seg)
+    scratch = (torch.empty(n_scratch, dtype=torch.uint8, device=dev)
                if n_scratch > 0 else None)
-    err = lib.topk_merge_launch(
+    stream = torch.cuda.current_stream(dev)
+    state = _row_state(dev, stream.cuda_stream, B) if n_seg > 1 else None
+    err = lib.topk_merge_run(
         rv.data_ptr(), ri.data_ptr(), sv.data_ptr(), si.data_ptr(),
         out_v.data_ptr(), out_i.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), B, kr, n, k,
-        int(metric is Metric.IP), n_seg, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if scratch is None else scratch.data_ptr(),
+        None if state is None else state.data_ptr(), B, kr, n, k,
+        int(metric is Metric.IP), n_seg, dev.index, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"topk_merge kernel launch failed: CUDA error "
                            f"{err}")
@@ -123,20 +121,38 @@ def topk_merge(rvals: torch.Tensor, rids: torch.Tensor, scores: torch.Tensor,
 
 topk_merge.launches = 0
 
+# (device index, stream handle) -> the rows' state the kernel shares between
+# a row's segments: 4 int64 a row, the first all ones, the rest zero, as
+# every launch on that stream leaves it
+_ROW_STATE: dict = {}
+
+
+def _row_state(dev: torch.device, stream: int, B: int) -> torch.Tensor:
+    st = _ROW_STATE.get((dev.index, stream))
+    if st is None or st.shape[0] < B:
+        st = torch.zeros((max(B, 1024), 4), dtype=torch.int64, device=dev)
+        st[:, 0] = -1
+        _ROW_STATE[(dev.index, stream)] = st
+    return st
+
 
 @functools.cache
 def _multiprocessors(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-@functools.cache
-def _library():
-    lib = build.load("topk_merge")
-    fn = lib.topk_merge_scratch_ints
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the library's functions for ctypes."""
+    fn = lib.topk_merge_scratch_bytes
     fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
-    fn = lib.topk_merge_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 + [
+    fn = lib.topk_merge_run
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library():
+    return bind(build.load("topk_merge"))

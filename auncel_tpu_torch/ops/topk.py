@@ -51,11 +51,11 @@ def merge_topk_verified(rvals: torch.Tensor, rids: torch.Tensor,
                         metric: Metric) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k merge of a running result ``[..., kr]`` with a wide
     candidate window ``[..., n]``: bit for bit ``topk_scores`` over their
-    concatenation, values and ids. The JAX package proves an approximate
-    selection exact by a certificate and sorts when it fails; here the
-    card runs an exact selection kernel that never builds the
-    concatenation (``kernels/topk_merge.py``; k up to its ``MAX_K``), and
-    the CPU the stable sort."""
+    concatenation, values and ids, at any k. The JAX package proves an
+    approximate selection exact by a certificate and sorts when it fails;
+    here the card runs an exact selection kernel that never builds the
+    concatenation (``kernels/topk_merge.py``), and the CPU the stable
+    sort."""
     # imported here: the kernel's module takes merge_topk from this one
     from auncel_tpu_torch.kernels.topk_merge import topk_merge
     return topk_merge(rvals, rids, scores, ids, k, metric)

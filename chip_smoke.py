@@ -18,8 +18,10 @@ sharded window's largest, a training chunk, the sharded fixed call), each
 with the device time of the worklist's kernels; the merge kernel
 (csrc/topk_merge.cu, the running top-k merge of scan_probe_range) at the
 widths of the main path's merges on uniform, tied and all-dead chunks
-([topk synth]), bitwise its plain version and timed against it and
-torch.topk; the bounded-search
+([topk synth]; a 10M window with a full running result, the steady state
+of a window's later rounds, and the 10M batch-1 width too) and at k 129,
+640, 1024 and 6400 ([topk k]), bitwise its plain version and timed against
+it and torch.topk; the bounded-search
 main path on the multi-row layout (K1 in search, K2 in profile
 training): calibration with its
 measured dense crossover, the held-out window through the one-shot engine
@@ -147,7 +149,10 @@ then
                    k_factor 4) on the same corpus and centroids: the stage
                    times of both PQs, the held-out queries at nprobe 32
                    (the base search, K2 on the codes, and the re-rank
-                   timed apart), recall@10 by ids at least [pq 10M
+                   timed apart), the first 100 at k_factor 64 and
+                   nprobe 8 (the base search at k 640, through the merge
+                   kernel) against a CPU copy's ids, recall@10 by ids at
+                   least [pq 10M
                    fixed]'s or the run fails, reconstruct_batch of 1000
                    ids equal to the CPU's, K2 against its plain version;
   [sharded 10M]    the reference's distributed mode on the same corpus:
@@ -207,11 +212,13 @@ when there is no CUDA device or any phase fails. The last line of stdout is
     python3 chip_smoke.py [--profile DIR] [--against DIR]
 
 ``--against DIR`` (DIR the root of another tree of the port, such as the
-parent commit's) builds that tree's csrc/rowscan.cu and csrc/scan_scores.cu
-with this tree's flags and times its K1 and K2 beside this tree's wherever
-k1_compare and k2_compare run (float32 and SQ codes), in turns, with
-whether the two give the same bits: at the calls recorded from this tree's
-main path too, which a run from the other tree's root cannot replay.
+parent commit's) builds that tree's csrc/rowscan.cu, csrc/scan_scores.cu
+and csrc/topk_merge.cu with this tree's flags and times its K1, K2 and
+merge beside this tree's wherever k1_compare, k2_compare and topk_compare
+run (float32 and SQ codes; merges at k <= 128 on a merge of the first
+design, which refused more), in turns, with whether the two give the same
+bits: at the calls and merges recorded from this tree's main path too,
+which a run from the other tree's root cannot replay.
 
 ``--profile DIR`` also writes torch.profiler tables of one batched and one
 batch-1 search on each path (the 10M one too), of the 0.9 and the strict
@@ -456,35 +463,45 @@ def sq8_10m_check(device, card: str) -> dict:
     return out
 
 
-# (name, B, running k, chunk width, k): the merge kernel at the widths the
-# recorded merges of the main path take (PERF.md section 6): the 10M SQ8
-# window's largest (B 256 x 256 row slots x row_cap 256), its batch 1 (64
-# row slots), the PQ16 window's (B 1000 x one list of cap 19736), a 10M
-# training chunk (B 100 x 8 x 19736), a 1M window's (B 1000 x 4 x 256), a
-# chunk narrower than k, and k 10
-TOPK_SHAPES = (("10M window", 256, 100, 65536, 100),
-               ("10M batch 1", 1, 100, 16384, 100),
-               ("PQ window", 1000, 100, 19736, 100),
-               ("10M training chunk", 100, 100, 157888, 100),
-               ("1M window", 1000, 100, 1024, 100),
-               ("narrow", 1000, 100, 50, 100),
-               ("k 10", 1000, 10, 19736, 10))
+# (name, B, running k, chunk width, k, running result): the merge kernel at
+# the widths the recorded merges of the main path take (PERF.md section 6):
+# the 10M SQ8 window's largest (B 256 x 256 row slots x row_cap 256), the
+# same with a full running result whose k-th beats 99.9 % of the chunk (the
+# steady state of a window's later rounds), its batch 1 (64 row slots) and
+# the largest recorded batch-1 merge (B 1 x 1775872), the PQ16 window's (B
+# 1000 x one list of cap 19736), a 10M training chunk (B 100 x 8 x 19736),
+# a 1M window's (B 1000 x 4 x 256), a chunk narrower than k, and k 10
+TOPK_SHAPES = (("10M window", 256, 100, 65536, 100, "half"),
+               ("10M window, full running result", 256, 100, 65536, 100,
+                "full"),
+               ("10M batch 1", 1, 100, 16384, 100, "half"),
+               ("10M batch 1 recorded width", 1, 100, 1775872, 100, "half"),
+               ("PQ window", 1000, 100, 19736, 100, "half"),
+               ("10M training chunk", 100, 100, 157888, 100, "half"),
+               ("1M window", 1000, 100, 1024, 100, "half"),
+               ("narrow", 1000, 100, 50, 100, "half"),
+               ("k 10", 1000, 10, 19736, 10, "half"))
+# k above the first design's 128: [topk k] merges at B 64 x 65536 (k 640 is
+# IVFPQR's base search at k_factor 64 and k 10; above 1024 the candidate
+# buffers live in scratch)
+TOPK_KS = (129, 640, 1024, 6400)
 
 
 def synthetic_merge(device, B: int, kr: int, n: int, k: int, kind: str,
-                    seed: int) -> tuple:
+                    seed: int, fill: str = "half") -> tuple:
     """A merge's inputs on the card (L2): a running result half full
-    (sorted values, then the worst value and id -1) and a chunk of uniform
-    scores of which a tenth are dead (the worst value, id -1); ``kind``
-    "ties" rounds the scores to four levels, "worst" makes every chunk
-    slot dead."""
+    (sorted values below 0.1, then the worst value and id -1), or with
+    ``fill`` "full" full of sorted values below 0.001, and a chunk of
+    uniform scores of which a tenth are dead (the worst value, id -1);
+    ``kind`` "ties" rounds the scores to four levels, "worst" makes every
+    chunk slot dead."""
     g = torch.Generator(device=device).manual_seed(seed)
     inf = float("inf")
-    half = kr // 2
+    half, scale = (kr, 0.001) if fill == "full" else (kr // 2, 0.1)
     rv = torch.full((B, kr), inf, device=device)
     ri = torch.full((B, kr), -1, dtype=torch.int32, device=device)
     rv[:, :half] = torch.sort(torch.rand((B, half), generator=g,
-                                         device=device), dim=1).values * 0.1
+                                         device=device), dim=1).values * scale
     ri[:, :half] = torch.arange(half, dtype=torch.int32, device=device)
     sv = torch.rand((B, n), generator=g, device=device)
     if kind == "ties":
@@ -498,26 +515,43 @@ def synthetic_merge(device, B: int, kr: int, n: int, k: int, kind: str,
     return rv, ri, sv, si
 
 
+def topk_line(tag: str, name: str, r: dict, card: str) -> None:
+    B, kr, n, k = r["shape"]
+    log(f"[{tag}] {name}: B {B}, running {kr}, chunk {n}, k {k}: kernel "
+        f"{r['ms']:.4f} ms, device {r['dev_ms']:.4f} ms "
+        f"({100 * r['bound_ms'] / r['dev_ms']:.1f} % of its bound "
+        f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms "
+        f"({r['plain_ms'] / r['ms']:.2f}x), torch.topk "
+        f"{r['library_ms']:.4f} ms; bitwise equal" + other_merge(r)
+        + f" [{card}]")
+
+
 def topk_check(device, card: str) -> dict:
     """The merge kernel at TOPK_SHAPES on synthetic inputs: uniform scores,
     then ties and an all-dead chunk, each bitwise its plain version, timed
-    against it and torch.topk: the [topk synth] lines. Returns the numbers
-    by name."""
+    against it and torch.topk: the [topk synth] lines; then at each k of
+    TOPK_KS: the [topk k] lines. Returns the numbers by name."""
     from auncel_tpu_torch import Metric
     out = {}
-    for name, B, kr, n, k in TOPK_SHAPES:
+    for name, B, kr, n, k, fill in TOPK_SHAPES:
         for kind in ("uniform", "ties", "worst"):
             call = ("synthetic", *synthetic_merge(device, B, kr, n, k, kind,
-                                                  seed=9), k, Metric.L2)
+                                                  seed=9, fill=fill),
+                    k, Metric.L2)
             r = topk_compare(f"{name} {kind}", call, card,
                              reps=50 if B * n <= 1 << 16 else 10)
-            log(f"[topk synth] {name}, {kind}: B {B}, running {kr}, chunk "
-                f"{n}, k {k}: kernel {r['ms']:.4f} ms "
-                f"({100 * r['bound_ms'] / r['ms']:.1f} % of its bound "
-                f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms "
-                f"({r['plain_ms'] / r['ms']:.2f}x), torch.topk "
-                f"{r['library_ms']:.4f} ms; bitwise equal [{card}]")
+            topk_line("topk synth", f"{name}, {kind}", r, card)
             out[(name, kind)] = r
+            del call
+        torch.cuda.empty_cache()
+    for k in TOPK_KS:
+        for kind in ("uniform", "ties"):
+            call = ("synthetic", *synthetic_merge(device, 64, k, 65536, k,
+                                                  kind, seed=10), k,
+                    Metric.L2)
+            r = topk_compare(f"k {k} {kind}", call, card, reps=10)
+            topk_line("topk k", f"k {k}, {kind}", r, card)
+            out[(f"k {k}", kind)] = r
             del call
         torch.cuda.empty_cache()
     return out
@@ -589,18 +623,21 @@ def dots_route(db, db_sq, vec_ids, row_sizes, q, q_sq, rows, metric):
     return scores.reshape(B, S * cap), sub_ids.reshape(B, S * cap)
 
 
-# --against DIR: the libraries of another tree of the port, whose K1 and K2
-# are timed beside this tree's (load_against, against_route)
+# --against DIR: the libraries of another tree of the port, whose K1, K2 and
+# merge are timed beside this tree's (load_against, against_route,
+# against_merge)
 AGAINST: dict = {}
 
 
 def load_against(root: str) -> None:
-    """Build the tree at ``root``'s csrc/rowscan.cu and csrc/scan_scores.cu
-    with this tree's nvcc flags into its _build (one nvcc each, in
-    parallel) and bind them as this tree binds its own."""
+    """Build the tree at ``root``'s csrc/rowscan.cu, csrc/scan_scores.cu and
+    csrc/topk_merge.cu with this tree's nvcc flags into its _build (one
+    nvcc each, in parallel) and bind them as this tree binds its own (a
+    merge of the first design by its own interface)."""
     import ctypes
     from auncel_tpu_torch.kernels import build
     from auncel_tpu_torch.kernels.scan_scores import bind_scan
+    from auncel_tpu_torch.kernels.topk_merge import bind
     pkg = os.path.join(root, "auncel_tpu_torch")
     os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
 
@@ -610,10 +647,100 @@ def load_against(root: str) -> None:
                         os.path.join(pkg, "csrc", f"{name}.cu")],
                        check=True, capture_output=True)
         return ctypes.CDLL(so)
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        k1, k2 = pool.map(make, ("rowscan", "scan_scores"))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        k1, k2, mg = pool.map(make, ("rowscan", "scan_scores", "topk_merge"))
     AGAINST["rowscan_scores"] = bind_scan(k1, "rowscan_scores")
     AGAINST["scan_scores"] = bind_scan(k2, "scan_scores", pq=True)
+    if hasattr(mg, "topk_merge_run"):
+        AGAINST["topk_merge"] = (bind(mg), None)
+    else:  # the first design: (..., int* scratch, B, kr, n, k, is_ip,
+        # segments <= 64, device, stream), k <= 128
+        mg.topk_merge_scratch_ints.argtypes = [ctypes.c_longlong,
+                                               ctypes.c_int, ctypes.c_int]
+        mg.topk_merge_scratch_ints.restype = ctypes.c_longlong
+        mg.topk_merge_launch.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_longlong] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        mg.topk_merge_launch.restype = ctypes.c_int
+        AGAINST["topk_merge"] = (mg, 128)
+
+
+def against_merge(rv, ri, sv, si, k: int, metric):
+    """The other tree's merge on one merge's inputs, as a bare callable
+    (outputs and scratch allocated once); None without --against or above
+    the k it takes."""
+    if "topk_merge" not in AGAINST:
+        return None
+    return merge_route(*AGAINST["topk_merge"], rv, ri, sv, si, k, metric)
+
+
+def this_merge(rv, ri, sv, si, k: int, metric):
+    """This tree's merge kernel as the same bare callable, so that the two
+    trees are timed through the same host path."""
+    from auncel_tpu_torch.kernels import topk_merge as tm
+    return merge_route(tm._library(), None, rv, ri, sv, si, k, metric)
+
+
+def merge_route(lib, max_k, rv, ri, sv, si, k: int, metric):
+    """A merge library's kernel on one merge's inputs as a callable: this
+    design's interface (max_k None) or the first design's (k <= max_k);
+    None above max_k."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.kernels import topk_merge as tm
+    if max_k is not None and k > max_k:
+        return None
+    B, kr = rv.shape
+    n = sv.shape[1]
+    dev = rv.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    is_ip = int(metric is Metric.IP)
+    out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    if max_k is None:
+        n_seg = tm.segments(B, kr + n, n_sm)
+        scratch = torch.empty(max(lib.topk_merge_scratch_bytes(B, k, n_seg),
+                                  8), dtype=torch.uint8, device=dev)
+        state = torch.zeros((B, 4), dtype=torch.int64, device=dev)
+        state[:, 0] = -1
+
+        def run():
+            err = lib.topk_merge_run(
+                rv.data_ptr(), ri.data_ptr(), sv.data_ptr(), si.data_ptr(),
+                out_v.data_ptr(), out_i.data_ptr(), scratch.data_ptr(),
+                state.data_ptr(), B, kr, n, k, is_ip, n_seg, dev.index,
+                stream.cuda_stream)
+            check(err == 0, f"a merge kernel: CUDA error {err}")
+            return out_v, out_i
+        return run
+    # the first design's segments: 6 blocks a multiprocessor, >= 2048
+    # positions a segment, at most 64
+    target = 6 * n_sm
+    n_seg = 1 if B >= target else max(1, min(-(-target // B),
+                                             -(-(kr + n) // 2048), 64))
+    scratch = torch.empty(max(lib.topk_merge_scratch_ints(B, k, n_seg), 1),
+                          dtype=torch.int32, device=dev)
+
+    def run():
+        err = lib.topk_merge_launch(
+            rv.data_ptr(), ri.data_ptr(), sv.data_ptr(), si.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), scratch.data_ptr(), B, kr, n,
+            k, is_ip, n_seg, dev.index, stream.cuda_stream)
+        check(err == 0, f"a merge kernel: CUDA error {err}")
+        return out_v, out_i
+    return run
+
+
+def other_merge(r: dict) -> str:
+    """A [topk] line's words on the other tree's merge, if it ran: device
+    times (profiler; nan where it recorded no device event), then event
+    times in turns, each tree's kernel through the same bare call."""
+    if r.get("other_ms") is None:
+        return ""
+    return (f"; against the other tree's merge: device this "
+            f"{r['dev_ms']:.4f} ms, other {r['other_dev_ms']:.4f} ms "
+            f"({r['other_dev_ms'] / r['dev_ms']:.2f}x), in turns this "
+            f"{r['turns_ms']:.4f} ms, other {r['other_ms']:.4f} ms; bitwise "
+            f"equal: {r['other_equal']}")
 
 
 def against_route(name: str, args, metric, codec: dict):
@@ -1321,9 +1448,25 @@ def topk_compare(label: str, call: tuple, card: str, reps: int) -> dict:
         t_lib = cuda_time_ms(lambda: torch.topk(
             cat_v, k, dim=-1, largest=metric is Metric.IP, sorted=True), reps)
         del cat_v
+        t_dev = device_ms(lambda: topk_merge(rv, ri, sv, si, k, metric),
+                          reps)
+        other = against_merge(rv, ri, sv, si, k, metric)
+        t_o = t_turns = eq = t_odev = None
+        if other is not None:
+            t_odev = device_ms(other, reps)
+            o_v, o_i = other()
+            torch.cuda.synchronize()
+            eq = (torch.equal(o_v.view(torch.int32), got[0].view(torch.int32))
+                  and torch.equal(o_i, got[1]))
+            t = time_routes({"this": this_merge(rv, ri, sv, si, k, metric),
+                             "other": other}, reps)
+            t_o, t_turns = t["other"], t["this"]
     b_ms, b_by = merge_bound(rv, sv, k)
     return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
             "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
+            "dev_ms": t_dev if t_dev is not None else float("nan"),
+            "other_ms": t_o, "turns_ms": t_turns, "other_equal": eq,
+            "other_dev_ms": t_odev if t_odev is not None else float("nan"),
             "stage": stage, "shape": (rv.shape[0], rv.shape[1], sv.shape[1],
                                       k)}
 
@@ -1340,35 +1483,55 @@ def topk_recorded(label: str, calls: list, card: str, reps: int = 5) -> dict:
     from auncel_tpu_torch.kernels.topk_merge import topk_merge, topk_merge_ref
     check(len(calls) > 0, f"[topk] {label}: no merge recorded")
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    tot = {key: 0.0 for key in keys}
+    tot = {key: 0.0 for key in keys + ("other_ms", "turns_ms")}
     res = []
+    slower = unequal = 0
     for i, call in enumerate(calls):
         r = topk_compare(f"{label}, merge {i + 1} of {len(calls)}", call,
                          card, reps)
         for key in keys:
             tot[key] += r[key]
+        if r["other_ms"] is not None:
+            for key in ("other_ms", "turns_ms"):
+                tot[key] += r[key]
+            slower += r["turns_ms"] > 1.05 * r["other_ms"]
+            unequal += not r["other_equal"]
         res.append(r)
     dev = {}
     with uncounted():
         for name, fn in (("kernel", topk_merge), ("plain", topk_merge_ref)):
             t = device_ms(lambda: [fn(*c[1:]) for c in calls], 3)
             dev[name] = "not measured" if t is None else f"{t:.3f} ms"
+            tot[f"{name}_dev"] = t
+        others = [against_merge(*c[1:]) for c in calls]
+        if others and all(o is not None for o in others):
+            t = device_ms(lambda: [o() for o in others], 3)
+            dev["other tree"] = "not measured" if t is None else f"{t:.3f} ms"
+            tot["other_dev"] = t
+        del others
     big = max(res, key=lambda r: r["shape"][0] * r["shape"][2])
     B, kr, n, k = big["shape"]
     log(f"[topk] {label}, the largest of {len(calls)} merges ({big['stage']};"
         f" B {B}, running {kr}, chunk {n}, k {k}): kernel {big['ms']:.4f} ms "
         f"({100 * big['bound_ms'] / big['ms']:.1f} % of its bound "
-        f"{big['bound_ms']:.4f} ms), plain (concatenation and stable sort) "
-        f"{big['plain_ms']:.4f} ms, torch.topk {big['library_ms']:.4f} ms "
-        f"[{card}]")
+        f"{big['bound_ms']:.4f} ms; device {big['dev_ms']:.4f} ms), plain "
+        f"(concatenation and stable sort) "
+        f"{big['plain_ms']:.4f} ms, torch.topk {big['library_ms']:.4f} ms"
+        + other_merge(big) + f" [{card}]")
     share = 100 * tot["bound_ms"] / tot["ms"]
     log(f"[topk] {label}, all {len(calls)} merges, each bitwise equal to the "
         f"plain version: kernel {tot['ms']:.3f} ms ({share:.1f} % of the "
         f"summed bound {tot['bound_ms']:.3f} ms), "
         f"plain {tot['plain_ms']:.3f} ms ({tot['plain_ms'] / tot['ms']:.2f}x),"
         f" torch.topk {tot['library_ms']:.3f} ms; device time over the "
-        f"merges (profiler): kernel {dev['kernel']}, plain {dev['plain']} "
-        f"[{card}]")
+        f"merges (profiler): kernel {dev['kernel']}, plain {dev['plain']}"
+        + (f", other tree {dev['other tree']}" if "other tree" in dev
+           else "")
+        + (f"; against the other tree's merge in turns (bare calls): this "
+           f"{tot['turns_ms']:.3f} ms, other {tot['other_ms']:.3f} ms "
+           f"({tot['other_ms'] / tot['turns_ms']:.2f}x); {slower} of "
+           f"{len(calls)} merges more than 5 % slower, {unequal} with other "
+           f"bits" if AGAINST.get("topk_merge") else "") + f" [{card}]")
     stages = {}
     for r in res:
         st = stages.setdefault(r["stage"], [0, 0.0, 0.0])
@@ -3536,6 +3699,7 @@ def pqr_10m_phase(corpus: dict, gt_ids: np.ndarray, pq_recall: float,
         f"{launches} [{card}]")
     check(rec >= pq_recall, f"IVFPQR recall@{K} {rec} below IVFPQ's "
           f"{pq_recall}")
+    k640 = pqr_k_factor_64(idx, q[:100], card)
     keys = np.random.RandomState(3).choice(NB10M, 1000, replace=False)
     got = idx.reconstruct_batch(keys)
     sorted_ids, pos, codes, books = refine
@@ -3561,7 +3725,64 @@ def pqr_10m_phase(corpus: dict, gt_ids: np.ndarray, pq_recall: float,
                           f" calls (B x n_slots {tuple(big[1][6].shape)})",
                           big[1], big[2], card, reps=10, terms_tol=True,
                           codec=big[3], label="k2 pqr")
-    return {"launches": launches, "kernels": kern, "recall": rec}
+    return {"launches": launches, "kernels": kern, "recall": rec,
+            "k640_launches": k640}
+
+
+# [pqr 10M] at k_factor 64: probes a query (fewer than the phase's 32, so
+# that the CPU copy's plain scan stays short; 8 lists hold about 78k codes,
+# far more than the base search's k 640)
+PQR_K64_NPROBE = 8
+
+
+def pqr_k_factor_64(idx, q: np.ndarray, card: str) -> int:
+    """[pqr 10M] at k_factor 64, the top of ParameterSpace's sweep: the
+    base search asks the merge kernel for k 640. The card's ids against a
+    CPU copy of the index (the same codes, norms and refine state) on the
+    same queries at PQR_K64_NPROBE, equal or the run fails, except where
+    the two sides' values at a slot are within 1e-5 relative (a near-tie
+    that the order of a float sum may turn)."""
+    from auncel_tpu_torch.index.io import ivfpqr_from_codes
+    a = idx.arrays
+    sorted_ids, pos, codes, books = idx._ensure_refine()
+    state = dict(centroids=idx.centroids, db=a.db.cpu().numpy(),
+                 vec_ids=a.vec_ids.cpu().numpy(),
+                 list_sizes=a.list_sizes.cpu().numpy(),
+                 pq_books=a.pq_codebooks.cpu().numpy(),
+                 refine_books=books.cpu().numpy(),
+                 refine_codes=codes.cpu().numpy(),
+                 refine_sorted_ids=sorted_ids, refine_pos=pos.cpu().numpy())
+    header = dict(d=idx.d, nlist=idx.nlist, M=PQ_M10M, M_refine=PQ_M10M,
+                  k_factor=64.0, metric="l2", ntotal=idx.ntotal)
+    cpu = ivfpqr_from_codes(state, header, device="cpu")
+    cpu._arrays = cpu._arrays._replace(db_sq=a.db_sq.cpu())
+    cpu._refine_of = cpu._arrays
+    idx.k_factor = 64.0
+    try:
+        reset_counts()
+        (cv, ci), t_card = synced(lambda: idx.search(q, K,
+                                                     nprobe=PQR_K64_NPROBE))
+        launches = launch_counts()
+        t0 = time.perf_counter()
+        parts = [cpu.search(q[i:i + 25], K, nprobe=PQR_K64_NPROBE)
+                 for i in range(0, len(q), 25)]
+        t_cpu = time.perf_counter() - t0
+    finally:
+        idx.k_factor = 4.0
+    check_merges("pqr 10M k_factor 64", launches)
+    pv = np.concatenate([p[0] for p in parts])
+    pi = np.concatenate([p[1] for p in parts])
+    diff = ci != pi
+    near = np.abs(cv - pv) <= 1e-5 * np.maximum(np.abs(pv), 1e-30)
+    log(f"[pqr 10M] k_factor 64 (base search k {round(64 * K)}), nprobe "
+        f"{PQR_K64_NPROBE}, {len(q)} queries: card {t_card * 1e3:.2f} ms, CPU "
+        f"copy {t_cpu:.2f} s; ids equal to the CPU's at "
+        f"{int((~diff).sum())} of {diff.size} slots ({int(diff.any(1).sum())}"
+        f" queries differ, every differing slot a near-tie: "
+        f"{bool(near[diff].all())}); launches {launches} [{card}]")
+    check(bool(near[diff].all()), "[pqr 10M] k_factor 64: ids differ from "
+          "the CPU's beyond near-ties")
+    return launches["topk_merge"]
 
 
 # [sharded 10M]: the reference's distributed mode (dist/worker.cpp:153-235:
@@ -4221,7 +4442,7 @@ def main() -> int:
     codecs = codec_check(device, card)
     pq_lines = pq_check(device, card)
     sq8_10m_check(device, card)
-    topk_check(device, card)
+    topk_lines = topk_check(device, card)
     corpus = build_corpus(card)
     if "--kernels" in sys.argv:
         kernels_on_index(corpus, device, card)
@@ -4372,6 +4593,15 @@ def main() -> int:
              sq8["launches"]["topk_merge"]),
             ("topk_merge pq", "pq 10M window", pq["launches"]["topk_merge"])):
         rec = TOPK_RECORDS[window]
+        kernels.append({"name": name, "route": "cuda", "source": merge_src,
+                        "replaces": merge_tpu, "launches": n,
+                        "library_ms": rec["library_ms"], **numbers(rec)})
+    # k above 128: k 640 (shared memory), launched by [pqr 10M] at
+    # k_factor 64, and k 6400 (scratch), in the comparisons only; the
+    # numbers of their [topk k] lines
+    for name, key, n in (("topk_merge k640", "k 640", pqr["k640_launches"]),
+                         ("topk_merge k6400", "k 6400", 0)):
+        rec = topk_lines[(key, "uniform")]
         kernels.append({"name": name, "route": "cuda", "source": merge_src,
                         "replaces": merge_tpu, "launches": n,
                         "library_ms": rec["library_ms"], **numbers(rec)})

@@ -19,7 +19,9 @@ K2); four shards of a ShardedIVF on one card against the CPU, data-
 parallel k-means on the card (bitwise repeatable) and the C API's demo on
 the card; the running top-k merge kernel (``csrc/topk_merge.cu``) bit for
 bit its plain version at batch 1 to 1024, chunks from below k to 160k,
-k up to 128, at every segment count, and its refusal of a larger k. The entry points' default device is checked everywhere. This file imports no jax, so it also runs where jax is not
+k 1 to 128, at 1 to 600 segments a row (one launch, the row's state left
+as found), with empty, half-full, full and unsorted running results, and
+at k 129, 640, 1024 and 6400 (the buffers in scratch above 1024). The entry points' default device is checked everywhere. This file imports no jax, so it also runs where jax is not
 installed, without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1256,20 +1258,25 @@ def test_c_api_demo_runs_on_the_card():
     np.testing.assert_array_equal(got["bounded"], bounded)
 
 
-def _merge_inputs(kind: str, B: int, kr: int, n: int, metric, dev, seed):
+def _merge_inputs(kind: str, B: int, kr: int, n: int, metric, dev, seed,
+                  fill: str = "half"):
     """A merge's inputs (numpy-made, then on the card): a running result
-    half full (sorted values, then the worst value and id -1) and a chunk
-    of ``kind``: "random", "ties" (four levels), "zeros" (+0.0 and -0.0
-    among worse values), "worst" (every slot the worst value), "masked"
-    (a few live slots among worst ones) or "nan" (a tenth NaN)."""
+    ``fill`` "half" full (sorted values, then the worst value and id -1),
+    "full", "empty" (all worst) or "unsorted" (full, shuffled), and a
+    chunk of ``kind``: "random", "ties" (four levels), "zeros" (+0.0 and
+    -0.0 among worse values), "worst" (every slot the worst value),
+    "masked" (a few live slots among worst ones) or "nan" (a tenth NaN)."""
     rng = np.random.RandomState(seed)
     sgn = 1.0 if metric is Metric.L2 else -1.0
     w = np.float32(np.inf * sgn)
-    half = kr // 2
+    half = {"half": kr // 2, "empty": 0}.get(fill, kr)
     rv = np.full((B, kr), w, np.float32)
     rv[:, :half] = np.sort(rng.rand(B, half), 1) * 0.1 * sgn
     ri = np.full((B, kr), -1, np.int32)
     ri[:, :half] = np.arange(half)
+    if fill == "unsorted":
+        order = rng.permutation(kr)
+        rv, ri = rv[:, order], ri[:, order]
     s = rng.rand(B, n).astype(np.float32)
     if kind == "ties":
         s = np.round(s * 3)
@@ -1320,27 +1327,75 @@ def test_topk_merge_is_bitwise_its_plain_version(B, n, metric):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_seg", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("n_seg", [1, 2, 3, 8, 64, 150, 600])
 def test_topk_merge_at_every_segment_count(n_seg, monkeypatch):
-    """Rows cut into 1 to 64 segments (the second launch merging them),
-    whatever the batch: the same bits."""
+    """Rows cut into 1 to 600 segments, whatever the batch, sharing the
+    row's threshold and the largest of their j-th best keys (j = ceil(k /
+    segments)), merged by the row's last segment: the same bits, and the
+    rows' state left as the wrapper keeps it between launches."""
     from auncel_tpu_torch.kernels import topk_merge as tm
     dev = _card()
     monkeypatch.setattr(tm, "segments", lambda *a: n_seg)
     for i, kind in enumerate(MERGE_KINDS):
         for B, n, k in ((3, 20000, 100), (64, 5000, 10), (2, 300, 128)):
-            _merge_equal(_merge_inputs(kind, B, k, n, Metric.L2, dev, i), k,
-                         Metric.L2)
+            for fill in ("half", "full", "empty"):
+                _merge_equal(_merge_inputs(kind, B, k, n, Metric.L2, dev, i,
+                                           fill), k, Metric.L2)
+    if n_seg > 1:
+        st = tm._ROW_STATE[(dev.index, torch.cuda.current_stream(dev)
+                            .cuda_stream)]
+        assert (st[:, 0] == -1).all() and (st[:, 1:] == 0).all()
 
 
 @pytest.mark.cuda
-def test_topk_merge_raises_above_its_k():
-    """k above MAX_K on a CUDA tensor raises (no fallback to the sort);
-    the CPU's plain version takes it."""
-    from auncel_tpu_torch.kernels.topk_merge import MAX_K, topk_merge
+@pytest.mark.parametrize("fill", ["empty", "half", "full", "unsorted"])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.IP])
+def test_topk_merge_running_results(fill, metric):
+    """Empty, half-full, full and out-of-order running results (the bound
+    of the row's k-th taken from the first k slots), at batch 1 and 1000,
+    with running results longer than k: bit for bit."""
     dev = _card()
-    args = _merge_inputs("random", 4, 10, 500, Metric.L2, dev, 0)
-    with pytest.raises(ValueError, match="k <="):
-        topk_merge(*args, MAX_K + 1, Metric.L2)
-    v, _ = topk_merge(*(a.cpu() for a in args), MAX_K + 1, Metric.L2)
-    assert v.shape == (4, MAX_K + 1)
+    for i, kind in enumerate(MERGE_KINDS):
+        for B, kr, n, k in ((1, 100, 1775872, 100), (1000, 100, 19736, 100),
+                            (7, 300, 3001, 10)):
+            _merge_equal(_merge_inputs(kind, B, kr, n, metric, dev, i, fill),
+                         k, metric)
+
+
+@pytest.mark.cuda
+def test_topk_merge_at_batch_1_is_one_launch():
+    """A batch-1 merge of the 10M recorded width (B 1 x 1775872, hundreds
+    of segments) runs as one kernel launch on the card."""
+    from auncel_tpu_torch.kernels.topk_merge import topk_merge
+    dev = _card()
+    args = _merge_inputs("random", 1, 100, 1775872, Metric.L2, dev, 0,
+                         "full")
+    _merge_equal(args, 100, Metric.L2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        topk_merge(*args, 100, Metric.L2)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("topk_merge" in n for n in names) == 1, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [129, 640, 1024, 6400])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.IP])
+def test_topk_merge_raises_above_its_k(k, metric):
+    """The card serves every k through the kernel (it refused k above 128
+    before): k 129, 640 and 1024 with their candidates in shared memory,
+    6400 in scratch, bit for bit the plain version at B 64 x 65536 and at
+    batch 1 (several segments), every kind of chunk and running result."""
+    from auncel_tpu_torch.kernels.topk_merge import topk_merge
+    dev = _card()
+    before = topk_merge.launches
+    n_calls = 0
+    for i, kind in enumerate(MERGE_KINDS):
+        for B, n in ((64, 65536), (1, 200000)):
+            fill = ("half", "full", "empty")[i % 3]
+            _merge_equal(_merge_inputs(kind, B, k, n, metric, dev, i, fill),
+                         k, metric)
+            n_calls += 1
+    assert topk_merge.launches == before + n_calls

@@ -17,7 +17,7 @@ import pytest
 from torch_parity import DEVICE
 
 REPO = Path(__file__).resolve().parent.parent
-CONFIG = dict(db="synth10K", ts=200, ses=100, input_k=10, error_bound=0.10,
+CONFIG = dict(db="synth10K", ts=100, ses=60, input_k=10, error_bound=0.10,
               nlist=32, max_topk=50, batch_latency=2)
 KEYS = ("bound_ok", "min_recall", "mean_nscan", "multipler", "std_m",
         "multirow_rows")

@@ -7,7 +7,7 @@ from torch_parity import DEVICE
 
 def test_compare_end_to_end(tmp_path):
     from auncel_tpu_torch.eval_harness import compare
-    rows = compare.run(db="synth10K", ts=200, ses=100, input_k=10,
+    rows = compare.run(db="synth10K", ts=100, ses=50, input_k=10,
                        nlist=64, max_topk=50, log_dir=str(tmp_path),
                        reps=1, device=DEVICE)
     names = [r["system"] for r in rows]

@@ -1,8 +1,8 @@
 """``IndexIVFPQR`` (``index/ivfpqr.py``), port against the JAX package: a
 4000 x 32 Gaussian corpus in IVF8 with PQ4 codes and a 16-byte refine PQ,
 built by the JAX package and carried over with its codes
-(``convert.ivfpqr_from_numpy``). Search at several k_factors (the base
-IVFPQ scan, then the one-pass re-rank), the two-stage reconstructions,
+(``convert.ivfpqr_from_numpy``). Search at k_factors 1 to 64 (the base
+IVFPQ scan at up to k 640, then the one-pass re-rank), the two-stage reconstructions,
 the refine training from the same first stage (numpy-drawn initial
 codebooks: k-means++ draws from each framework's own generator), the
 ``k_factor`` knob, the tiny and empty cases, the inner-product refusal,
@@ -77,8 +77,10 @@ def _terms(q, idx, ids):
     return (q * q).sum(1)[:, None] + (rec * rec).sum(-1)
 
 
-@pytest.mark.parametrize("k_factor", [1.0, 4.0, 8.0])
+@pytest.mark.parametrize("k_factor", [1.0, 4.0, 8.0, 64.0])
 def test_search_matches_jax(k_factor):
+    """k_factor 64 is the top of ParameterSpace's sweep: the base search
+    asks for k 640."""
     j, t = _pair()
     _, xq = _data()
     for x in (j, t):

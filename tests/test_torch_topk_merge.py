@@ -4,15 +4,21 @@ the JAX package: bit for bit the JAX ``topk_scores`` over the
 concatenation, and, as ``tests/test_topk_verified.py`` holds the JAX merge,
 equal values to the JAX ``merge_topk_verified`` with equal ids wherever a
 value is untied. The card's kernel (``csrc/topk_merge.cu``) is modelled in
-plain torch (``torch_parity.topk_merge_model``: segments, the radix
-threshold, ties by position, the segments' merge) and the model is held bit
-for bit to the sort over 1-8 segments; the card tests hold the kernel to
-its plain version. Last, ``scan_probe_range`` on the shared fixture gives
-the results it gave with the sort merge inline, on both layouts.
+plain torch (``torch_parity.topk_merge_model``: the running result's
+bound, segments streamed in steps, the radix select over (key, position)
+keys, the row's shared threshold, the pool and its merge) and the model is
+held bit for bit to the sort over 1-8 segments, at k segments and more,
+and with the candidate buffers of a large k; the card tests hold the
+kernel to its plain version. Last, ``scan_probe_range`` on the shared
+fixture gives the results it gave with the sort merge inline, on both
+layouts.
 
 One difference from the JAX package is pinned here: ``lax.top_k`` orders
 -0.0 before +0.0, where the port (``torch.sort``, and the kernel) takes
 them as one key and keeps the earlier position. Values agree as numbers.
+No scan emits -0.0 (every dot sums from +0.0), which
+``test_scans_emit_no_negative_zero`` shows on both packages, so the
+difference never reaches a search.
 """
 
 import numpy as np
@@ -21,13 +27,16 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_parity import (DEVICE, K, jax_fixture, port_state, tnp,
+from torch_parity import (DEVICE, K, as_numpy, jax_fixture, port_state, tnp,
                           topk_merge_model)
+from auncel_tpu.index import scan as jscan
+from auncel_tpu.index.ivf import IVFFlatIndex as JIVF
 from auncel_tpu.ops import topk as jtopk
 from auncel_tpu.types import Metric as JMetric
+from auncel_tpu_torch.convert import ivf_arrays_from_numpy, multirow_from_numpy
 from auncel_tpu_torch.index import scan as tscan
 from auncel_tpu_torch.kernels.topk_merge import (
-    MAX_SEGMENTS, SEGMENT_MIN, segments, topk_merge, topk_merge_ref)
+    BLOCKS_PER_SM, SEGMENT_MIN, segments, topk_merge, topk_merge_ref)
 from auncel_tpu_torch.ops.distance import sqnorms
 from auncel_tpu_torch.ops.topk import init_topk, merge_topk_verified
 from auncel_tpu_torch.types import Metric, worst_value
@@ -169,6 +178,52 @@ def test_signed_zero_ties(metric, jmetric):
     assert (np.asarray(ei) != ti).any()  # the pinned difference
 
 
+@pytest.mark.parametrize("metric,jmetric", METRICS)
+def test_scans_emit_no_negative_zero(metric, jmetric):
+    """Zero queries (+0.0 and -0.0 components) against zero, all-negative
+    and sign-mixed vectors, through both packages' scan_probe_range on
+    padded lists and on rows: every score that is zero is +0.0 (each dot
+    sums from +0.0, and the L2 assembly cancels to +0.0), so -0.0 never
+    meets +0.0 at the k-th place, and the ids are equal."""
+    rng = np.random.RandomState(10)
+    d, nb, k = 8, 64, 12
+    xb = rng.randn(nb, d).astype(np.float32)
+    xb[::3] = -np.abs(xb[::3])
+    xb[1::7] = 0.0
+    centers = np.stack([np.ones(d), -np.ones(d)]).astype(np.float32)
+    j = JIVF(d, 2, metric=metric.name.lower())
+    j.set_centroids(centers)
+    j.add(xb)
+    j.enable_multirow(row_cap=16)
+    q = np.zeros((2, d), np.float32)
+    q[1] = -0.0
+    for rows in (False, True):
+        if rows:
+            target = multirow_from_numpy(as_numpy(j.multirow), DEVICE).rows
+            jtarget = j.multirow.rows
+            live = np.flatnonzero(np.asarray(j.multirow.row_list) >= 0)
+            probes = np.stack([live, live]).astype(np.int32)
+        else:
+            target = ivf_arrays_from_numpy(as_numpy(j.arrays), DEVICE)
+            jtarget = j.arrays
+            probes = np.array([[0, 1], [0, 1]], np.int32)
+        w = probes.shape[1]
+        limit = np.full(2, w, np.int32)
+        jv, ji = jtopk.init_topk((2,), k, jmetric)
+        jv, ji = jscan.scan_probe_range(
+            jtarget, jnp.asarray(q), jnp.zeros(2), jnp.asarray(probes), jv,
+            ji, jnp.asarray(limit), 0, w, jmetric)
+        tq = torch.from_numpy(q)
+        tv, ti = init_topk((2,), k, metric, DEVICE)
+        tv, ti = tscan.scan_probe_range(
+            target, tq, sqnorms(tq), torch.from_numpy(probes), tv, ti,
+            torch.from_numpy(limit), 0, w, metric)
+        for v in (np.asarray(jv), tnp(tv)):
+            assert (v == 0).sum() >= k and not np.signbit(v[v == 0]).any()
+        np.testing.assert_array_equal(_bits(tnp(tv)), _bits(jv))
+        np.testing.assert_array_equal(tnp(ti), np.asarray(ji))
+
+
 @pytest.mark.parametrize("k", [1, 10, 100])
 @pytest.mark.parametrize("metric,jmetric", METRICS)
 def test_all_worst_rows(k, metric, jmetric):
@@ -244,30 +299,64 @@ def _model_cases():
     return out
 
 
+# (step, buffer, largest k kept in shared memory, unaligned head, the most
+# final keys ranked without a select): the kernel's, and small ones that
+# make every segment stream and select many times, the last with the
+# large-k buffers for every k above 16
+MODEL_SHAPES = ((2048, 4096, 1024, 0, 256), (256, 384, 128, 1, 64),
+                (64, 96, 16, 3, 8))
+
+
+def _model_equal(cases, n_seg):
+    for name, rv, ri, s, si, k, metric in cases:
+        want = topk_merge_ref(rv, ri, s, si, k, metric)
+        for step, cap, max_smem_k, head, whole in MODEL_SHAPES:
+            got = topk_merge_model(rv, ri, s, si, k, metric, n_seg,
+                                   step=step, cap=cap, max_smem_k=max_smem_k,
+                                   head=head, rank_max=whole)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32)), (name, step)
+            assert torch.equal(got[1], want[1]), (name, step)
+
+
 @pytest.mark.parametrize("n_seg", range(1, 9))
 def test_kernel_model_matches_the_sort(n_seg):
-    """The kernel's selection (segments, radix threshold, ties by
-    position, the segments' merge) bit for bit the stable sort, at the
-    kernel's step and buffer and at small ones that make every segment
-    stream and select many times."""
-    for name, rv, ri, s, si, k, metric in _model_cases():
-        want = topk_merge_ref(rv, ri, s, si, k, metric)
-        for step, cap in ((2048, 8320), (256, 256 + 128)):
-            got = topk_merge_model(rv, ri, s, si, k, metric, n_seg,
-                                   step=step, cap=cap)
-            assert torch.equal(got[0].view(torch.int32),
-                               want[0].view(torch.int32)), name
-            assert torch.equal(got[1], want[1]), name
+    """The kernel's selection (the running bound, segments, the radix
+    select, the shared threshold, the pool's merge) bit for bit the stable
+    sort, at the kernel's step and buffer and at small ones."""
+    _model_equal(_model_cases(), n_seg)
+
+
+@pytest.mark.parametrize("n_seg", [3, 12])
+def test_kernel_model_at_k_segments_and_more(n_seg):
+    """A row's segments also bound its k-th by the largest of their j-th
+    best keys (j = ceil(k / segments): each segment's best key at k
+    segments and more); the running result out of order still bounds it
+    by its first k keys' largest."""
+    rng = np.random.RandomState(9)
+    B, W, k = 2, 900, 3
+    cases = []
+    for metric in (Metric.L2, Metric.IP):
+        sgn = 1.0 if metric is Metric.L2 else -1.0
+        ids = _t(np.arange(B * W).reshape(B, W), np.int32)
+        rv = _t(rng.rand(B, k + 2) * sgn, np.float32)  # not sorted
+        ri = _t(np.arange(B * (k + 2)).reshape(B, -1) + 10**6, np.int32)
+        for name, s in (("random", rng.rand(B, W) * sgn),
+                        ("ties", np.round(rng.rand(B, W) * 2) * sgn)):
+            cases.append((name, rv, ri, _t(s, np.float32), ids, k, metric))
+    _model_equal(cases, n_seg)
 
 
 def test_segments_and_the_cpu_route():
-    """One segment once the batch fills the card, several of at least
-    SEGMENT_MIN positions below it, never more than MAX_SEGMENTS; on the
+    """Segments fill the card's resident blocks with B rows, each of
+    SEGMENT_MIN positions at least, one once the batch fills half; on the
     CPU the wrapper is its plain version and takes any k."""
-    assert segments(1000, 19836, 132) == 1
-    assert segments(256, 65636, 132) == 4
+    fill = BLOCKS_PER_SM * 132
+    assert segments(fill, 19836, 132) == 1
+    assert segments(fill // 2 + 1, 1 << 20, 132) == 1
+    assert segments(256, 65636, 132) == fill // 256
     assert segments(1, 16484, 132) == -(-16484 // SEGMENT_MIN)
-    assert segments(1, 1 << 24, 132) == MAX_SEGMENTS
+    assert segments(1, 1 << 24, 132) == fill
     assert segments(1, 50, 132) == 1
     rng = np.random.RandomState(7)
     s = _t(rng.rand(2, 400), np.float32)

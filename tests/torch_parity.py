@@ -259,8 +259,8 @@ def dot_order_scores(args, x: torch.Tensor, metric) -> tuple:
 
 def order_keys(v: torch.Tensor, ip: bool) -> torch.Tensor:
     """The merge kernel's order-preserving keys of float32 values, as int64
-    holding a uint32: -0.0 as +0.0, every NaN as larger than +inf, inverted
-    for IP; a smaller key is a better value."""
+    holding a uint32: -0.0 as +0.0, every NaN as larger than +inf,
+    inverted for IP; a smaller key is a better value."""
     u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     u = torch.where((u & 0x7FFFFFFF) > 0x7F800000, 0x7FC00000, u)
     u = torch.where(u == 0x80000000, 0, u)
@@ -268,78 +268,128 @@ def order_keys(v: torch.Tensor, ip: bool) -> torch.Tensor:
     return ~u & 0xFFFFFFFF if ip else u
 
 
-def radix_select(keys: torch.Tensor, k: int) -> tuple:
-    """The kernel's radix select over ``keys`` (more than k): four 8-bit
-    digits from the top, each a histogram of the keys that match the
-    digits so far. Returns (T, want): the k-th smallest key and how many
-    keys equal to it the k smallest take."""
-    prefix, mask, want = 0, 0, k
-    for shift in (24, 16, 8, 0):
-        match = (keys & mask) == prefix
-        hist = torch.bincount((keys[match] >> shift) & 0xFF, minlength=256)
+# The kernel's 64-bit composite keys (key << 32) | position are unsigned;
+# the model keeps each as that value less 2^63, an int64 in the same order.
+_MIN64 = -(1 << 63)
+_NONE = (1 << 63) - 1     # the kernel's ~0: no threshold
+
+
+def radix_bound(keys: torch.Tensor, k: int) -> int:
+    """The kernel's radix select over more than k unique composite keys:
+    8-bit digits of the unsigned key from the top, each a histogram of the
+    keys that match the digits so far, until the digit's bucket is taken
+    whole. Returns the bound T (in the model's domain) with exactly the k
+    smallest keys at or below it."""
+    u = keys ^ _MIN64                       # the unsigned bits
+    prefix, want = 0, k
+    for shift in range(56, -1, -8):
+        top = prefix - (1 << 64) if prefix >= 1 << 63 else prefix
+        match = (u >> (shift + 8)) == (top >> (shift + 8)) if shift < 56 \
+            else torch.ones_like(u, dtype=torch.bool)
+        hist = torch.bincount((u[match] >> shift) & 0xFF, minlength=256)
         cum = torch.cumsum(hist, 0)
         digit = int(torch.searchsorted(cum, want))
         want -= int(cum[digit - 1]) if digit > 0 else 0
         prefix |= digit << shift
-        mask |= 0xFF << shift
-    return prefix, want
+        if int(hist[digit]) == want:
+            return (prefix | ((1 << shift) - 1)) - (1 << 63)
+    raise AssertionError("unique keys end at a bucket of one")
 
 
-def select_in_order(keys: torch.Tensor, pos: torch.Tensor, k: int) -> tuple:
-    """Keys and positions in position order -> their k smallest by (key,
-    position), still in position order: every key below the radix
-    threshold T, then the first keys equal to T."""
-    if keys.numel() <= k:
-        return keys, pos
-    T, want = radix_select(keys, k)
-    eq = keys == T
-    keep = (keys < T) | (eq & (torch.cumsum(eq.long(), 0) <= want))
-    return keys[keep], pos[keep]
-
-
-def topk_merge_model(rvals, rids, scores, ids, k: int, metric,
-                     n_seg: int, step: int = 2048, cap: int = 8320) -> tuple:
+def topk_merge_model(rvals, rids, scores, ids, k: int, metric, n_seg: int,
+                     step: int = 2048, cap: int = 4096,
+                     max_smem_k: int = 1024, head: int = 0,
+                     rank_max: int = 256) -> tuple:
     """The merge kernel's selection (``csrc/topk_merge.cu``) in plain
-    torch, row by row over the concatenation [running | chunk]: ``n_seg``
-    segments, each streamed in steps of ``step`` positions into a buffer
-    of ``cap``, keeping only keys below the current k-th and selecting
-    when the buffer holds more than k and no threshold exists yet or the
-    next step might not fit; then the segments' candidates in segment
-    order selected again, ranked by (key, position), the winners' values
-    and ids gathered by position (a metric-worst value with id -1) and
-    slots past the row filled with the worst value and -1."""
+    torch, row by row, its ``n_seg`` segments one after another (one order
+    the card may run them in). Each composite key (order key, position) is
+    unique. A segment starts from the bound of the row's k-th that the
+    running result's first k keys give and the row's shared threshold;
+    segment 0 streams the running result and the chunk's ``head`` and tail
+    values (``head`` unaligned values before the 16-byte vectors, 0 to 3
+    on the card) as one sequence, every segment an equal share of the
+    chunk's vectors, in steps of ``step`` positions, keeping the keys at
+    or below its bound in
+    a buffer of ``cap`` (``3k + step`` above ``max_smem_k``); a step that
+    leaves more than ``cap - step`` keys (above ``max_smem_k``: 2k) selects
+    k, tightens the bound and publishes it to the row's threshold, which
+    every step reads back. With several segments, each then puts its keys
+    at or below the row's threshold into the row's pool and its j-th best
+    key (j = ceil(k / n_seg)) into the row's maximum; the last streams the
+    pool under the row's threshold (and that maximum, once k / j segments
+    published one) the same way. A stream's last keys are cut to the best
+    k, by the select when there are more than ``rank_max`` (and k), else
+    by their ranks. The winners are ranked
+    by key, their values and ids gathered by position (a metric-worst
+    value with id -1) and slots past the row filled with the worst value
+    and -1."""
     ip = metric.name == "IP"
     worst = float("-inf") if ip else float("inf")
     vals = torch.cat([rvals, scores], dim=-1)
     all_ids = torch.cat([rids, ids], dim=-1)
-    B, n = vals.shape
+    B, total = vals.shape
+    kr, n = rvals.shape[-1], scores.shape[-1]
+    trig = cap - step if k <= max_smem_k else 2 * k
+    pos = torch.arange(total, dtype=torch.int64)
+    comp = ((order_keys(vals, ip) << 32) | pos) ^ _MIN64
+    h = min(head, n)
+    nv = (n - h) // 4
+    per = -(-nv // n_seg)
+    jth = -(-k // n_seg)
     out_v = torch.full((B, k), worst, dtype=torch.float32)
     out_i = torch.full((B, k), -1, dtype=torch.int32)
-    keys = order_keys(vals, ip)
-    seg_len = -(-n // n_seg)
     for b in range(B):
-        cand_k, cand_p = [], []
-        for s in range(n_seg):
-            lo, hi = min(n, s * seg_len), min(n, (s + 1) * seg_len)
-            bk = torch.empty(0, dtype=torch.int64)
-            bp = torch.empty(0, dtype=torch.int64)
-            thr = None
-            for p in range(lo, hi, step):
-                sk = keys[b, p:min(hi, p + step)]
-                sp = torch.arange(p, p + sk.numel())
-                if thr is not None:
-                    sp, sk = sp[sk < thr], sk[sk < thr]
-                bk, bp = torch.cat([bk, sk]), torch.cat([bp, sp])
-                if bk.numel() > k and (thr is None
-                                       or bk.numel() + step > cap):
-                    bk, bp = select_in_order(bk, bp, k)
-                    thr = int(bk.max())
-            bk, bp = select_in_order(bk, bp, k)
-            cand_k.append(bk)
-            cand_p.append(bp)
-        ck, cp = select_in_order(torch.cat(cand_k), torch.cat(cand_p), k)
-        order = torch.sort(ck, stable=True).indices  # ties: position order
-        win = cp[order]
+        row = comp[b]
+        shared = {"thr": _NONE, "tmax": _MIN64, "contrib": 0}
+
+        def stream(keys_steps, T, publish):
+            buf = torch.empty(0, dtype=torch.int64)
+            for sk in keys_steps:
+                buf = torch.cat([buf, sk[sk <= T]])
+                if buf.numel() > trig:
+                    t = radix_bound(buf, k)
+                    buf = buf[buf <= t]
+                    assert buf.numel() == k
+                    T = min(T, t)
+                    if publish:
+                        shared["thr"] = min(shared["thr"], T)
+                if publish:
+                    T = min(T, shared["thr"])
+            if buf.numel() > max(k, rank_max):
+                t = radix_bound(buf, k)
+                buf = buf[buf <= t]
+                T = min(T, t)
+            return torch.sort(buf).values[:k], T
+
+        pool = []
+        for seg in range(n_seg):
+            T = int(row[:k].max()) if kr >= k else _NONE
+            T = min(T, shared["thr"])
+            steps = []
+            if seg == 0:  # running, head and tail: one sequence
+                vpos = torch.cat([torch.arange(kr + h),
+                                  torch.arange(kr + h + 4 * nv, total)])
+                steps += [vpos[q:q + step]
+                          for q in range(0, vpos.numel(), step)]
+            v_lo, v_hi = min(nv, seg * per), min(nv, (seg + 1) * per)
+            steps += [torch.arange(kr + h + 4 * v,
+                                   kr + h + 4 * min(v_hi, v + step // 4))
+                      for v in range(v_lo, v_hi, step // 4)]
+            buf, T = stream((row[ix] for ix in steps), T, n_seg > 1)
+            if n_seg == 1:
+                break
+            pool.append(buf[buf <= min(T, shared["thr"])])
+            if buf.numel() >= jth:  # buf is sorted
+                shared["tmax"] = max(shared["tmax"], int(buf[jth - 1]))
+                shared["contrib"] += 1
+        if n_seg > 1:
+            pool = torch.cat(pool)
+            T = shared["thr"]
+            if shared["contrib"] * jth >= k:
+                T = min(T, shared["tmax"])
+            buf, _ = stream((pool[i:i + step]
+                             for i in range(0, pool.numel(), step)), T, False)
+        win = (buf ^ _MIN64) & 0xFFFFFFFF
         v = vals[b, win]
         out_v[b, :win.numel()] = v
         out_i[b, :win.numel()] = torch.where(v == worst, -1, all_ids[b, win])
