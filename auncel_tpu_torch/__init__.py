@@ -38,9 +38,11 @@ from auncel_tpu_torch.index.flat import FlatIndex
 from auncel_tpu_torch.index.hnsw import HNSWIndex
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
 from auncel_tpu_torch.index.factory import index_factory
+from auncel_tpu_torch.index.binary import index_binary_factory
 from auncel_tpu_torch.profile.error_sys import ErrorSys
 
 __version__ = "0.1.0"
 
 __all__ = ["Metric", "FlatIndex", "HNSWIndex", "IVFFlatIndex",
-           "index_factory", "ErrorSys", "__version__"]
+           "index_factory", "index_binary_factory", "ErrorSys",
+           "__version__"]

@@ -88,6 +88,10 @@ class EvalData:
     cache_tag: str = ""
 
 
+def elapsed():
+    return time.time()
+
+
 def sync(device) -> None:
     """Wait for the card's queued work (a no-op on the CPU), so that a
     timer reads what the device did."""

@@ -39,6 +39,7 @@ directory. As with ``save_index``, the port writes a residual-PQ index's
 reconstructions; the JAX package writes the residuals.
 """
 
+import copy
 import json
 import os
 
@@ -349,3 +350,15 @@ def load_index_ondisk(dirpath: str, device="cuda") -> IVFFlatIndex:
     mask = vec_ids >= 0
     idx.add(np.asarray(db[mask]), ids=np.asarray(vec_ids[mask], np.int64))
     return idx
+
+
+def clone_index(index):
+    """Deep, independent copy (reference ``clone_index``/``Cloner``,
+    index_io.h:73). Torch tensors are mutable, so the copy owns every
+    tensor (each cloned on its own device), and ``add``/``train``/
+    ``reset`` on either copy leave the other as it was. The lists of an
+    ``OnDiskIVFIndex`` stay shared: read-only memmaps of its directory.
+    The kernels' libraries are module state, not the index's."""
+    memo = {id(a): a for a in vars(index).values()
+            if isinstance(a, np.memmap)}
+    return copy.deepcopy(index, memo)

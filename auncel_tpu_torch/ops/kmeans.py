@@ -19,6 +19,19 @@ import torch
 from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.device import resolve
 from auncel_tpu_torch.ops.distance import pairwise_l2sqr, sqnorms
+from auncel_tpu_torch.ops.knn import knn
+
+
+def imbalance_factor(assign: np.ndarray, k: int) -> float:
+    """Cluster-size imbalance (reference imbalance_factor,
+    utils.cpp:1056-1076): k * sum(hist^2) / n^2, 1.0 for balanced
+    clusters and k when every point lands in one; the layout-skew
+    statistic that picks between the padded and multi-row layouts."""
+    hist = np.bincount(np.asarray(assign, np.int64), minlength=k)
+    n = float(hist.sum())
+    if n == 0:
+        return 0.0
+    return float((hist.astype(np.float64) ** 2).sum() * k / (n * n))
 
 
 class KmeansParams(NamedTuple):
@@ -170,3 +183,29 @@ def kmeans(x, k: int, params: KmeansParams = KmeansParams(),
             best = KmeansResult(centroids.cpu().numpy(), err)
     assert best is not None
     return best
+
+
+class Kmeans:
+    """The reference's Python ``Kmeans`` (``python/faiss.py``): ``train``
+    runs ``kmeans`` and keeps ``centroids`` and ``obj``; ``assign`` gives
+    each point its nearest centroid, on ``device``."""
+
+    def __init__(self, d: int, k: int, niter: int = 25, seed: int = 1234,
+                 spherical: bool = False, verbose: bool = False,
+                 device="cuda"):
+        self.d, self.k = d, k
+        self.params = KmeansParams(niter=niter, seed=seed,
+                                   spherical=spherical, verbose=verbose)
+        self.device = device
+        self.centroids: np.ndarray | None = None
+        self.obj: float | None = None
+
+    def train(self, x) -> float:
+        res = kmeans(x, self.k, self.params, device=self.device)
+        self.centroids = res.centroids
+        self.obj = res.error
+        return res.error
+
+    def assign(self, x) -> np.ndarray:
+        return knn(x, self.centroids, 1, Metric.L2,
+                   device=self.device).ids[:, 0]

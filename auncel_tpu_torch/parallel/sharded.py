@@ -9,20 +9,27 @@ because each shard guarantees it on its partition and the merge keeps the
 global top-k.
 
 The JAX package runs the shards as one SPMD program over stacked ``[S,
-...]`` state. Here one process drives a list of per-shard ``IVFFlatIndex``es,
-each on the device the mesh gives its shard; the merge moves each shard's
-``[B, k]`` result to the first shard's device and re-selects the top k with
-the stable sort of ``ops/topk.py``, so ties go to the lower shard, as
-``lax.top_k`` over the all-gather gives them. Each shard keeps its arrays,
+...]`` state. Here each shard is an ``IVFFlatIndex`` on the device the mesh
+gives it, and the merge moves each shard's ``[B, k]`` result to one device
+and re-selects the top k with the stable sort of ``ops/topk.py``, so ties
+go to the lower shard, as ``lax.top_k`` over the all-gather gives them. Each shard keeps its arrays,
 row layout and profile at its own size: the JAX padding to common shapes
 exists only for stacking, and no result depends on it. The one-shot plan of
 ``enable_multirow`` is the JAX one: built once from the dominating row
 profile and shared by every shard.
 
-The mesh is a ``[dp, shard]`` grid of torch devices (``make_mesh``). With
-fewer devices than grid cells, cells take the devices round-robin, so one
-card can hold every shard; a shard whose cell names another device than
-the one its index lives on is served from a copy made there once.
+The mesh is a ``[dp, shard]`` grid of torch devices (``make_mesh``). On
+a one-process mesh, one process drives every shard: with fewer devices
+than grid cells, cells take the devices round-robin, so one card can hold
+every shard, and a shard whose cell names another device than the one its
+index lives on is served from a copy made there once. On a rank mesh
+(``make_mesh(..., ranks=True)``, ``parallel/distributed.py``) cell (g, s)
+is the process of rank g * S + s, which holds only shard s: the values
+that every shard contributes to shared state (the caps and rows per list
+the one-shot plan is built from, the host mirror of the profiles) are
+gathered, every search ends in one all_gather of the cells' results, and
+every rank merges them as one process would, so all ranks return the
+one-process result bit for bit.
 """
 
 import json
@@ -50,12 +57,22 @@ DP = "dp"
 class Mesh:
     """Shard (and query data-parallel) placement: ``devices`` is a [dp, S]
     grid of torch devices; ``shape`` is the JAX mesh's (``{"shard": S}``,
-    or ``{"dp": dp, "shard": S}`` with a dp axis)."""
+    or ``{"dp": dp, "shard": S}`` with a dp axis). ``comm`` is the
+    transport of a rank mesh (``distributed.RankComm``), None when one
+    process drives every cell."""
 
-    def __init__(self, devices: np.ndarray, axis_names: tuple):
+    def __init__(self, devices: np.ndarray, axis_names: tuple, comm=None):
         assert devices.ndim == 2, devices.shape
         self.devices = devices
         self.axis_names = axis_names
+        self.comm = comm
+
+    @property
+    def cell(self) -> tuple | None:
+        """This process's (g, s) on a rank mesh, else None."""
+        if self.comm is None:
+            return None
+        return divmod(self.comm.rank, self.devices.shape[1])
 
     @property
     def shape(self) -> dict:
@@ -64,13 +81,21 @@ class Mesh:
 
 
 def make_mesh(n_shards: int | None = None, dp: int = 1,
-              devices=None) -> Mesh:
+              devices=None, ranks: bool = False) -> Mesh | None:
     """Device mesh for sharded search. ``dp > 1`` adds a query
     data-parallel axis: each dp group holds a full replica of the sharded
     corpus and serves 1/dp of every query batch. ``devices`` defaults to
     every visible CUDA device (and raises when there is none); grid cells
     take them round-robin, so ``make_mesh(4)`` on one card places all
-    four shards on it."""
+    four shards on it.
+
+    With ``ranks`` (an initialised process group), the grid's cells are
+    the world's first dp * S ranks, cell (g, s) rank g * S + s, each on
+    its rank's device: ``devices[rank % len(devices)]``, by default the
+    card ``LOCAL_RANK % device_count``. Every rank of the world calls it;
+    a rank outside the grid gets None."""
+    if ranks:
+        return _rank_mesh(n_shards, dp, devices)
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
@@ -83,6 +108,27 @@ def make_mesh(n_shards: int | None = None, dp: int = 1,
     for i in range(dp * n):
         grid.flat[i] = devs[i % len(devs)]
     return Mesh(grid, (AXIS,) if dp == 1 else (DP, AXIS))
+
+
+def _rank_mesh(n_shards: int | None, dp: int, devices) -> Mesh | None:
+    import torch.distributed as dist
+    from auncel_tpu_torch.parallel.distributed import RankComm, own_device
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh(ranks=True) needs an initialised "
+                           "process group (torch.distributed."
+                           "init_process_group)")
+    world = dist.get_world_size()
+    n = n_shards or world // dp
+    if dp * n > world:
+        raise ValueError(f"a [{dp}, {n}] mesh needs {dp * n} ranks; the "
+                         f"world has {world}")
+    comm = RankComm(range(dp * n))
+    if comm.rank < 0:
+        return None
+    grid = np.empty((dp, n), object)
+    for i, d in enumerate(comm.devices(own_device(devices))):
+        grid.flat[i] = d
+    return Mesh(grid, (AXIS,) if dp == 1 else (DP, AXIS), comm)
 
 
 def split_round_robin(x: np.ndarray, n_shards: int):
@@ -133,12 +179,32 @@ class ShardedIVF:
         self._replicas: dict = {}
         self.multipler = 1.0
         self.std_m = 1.0
+        self.dropped = False   # this rank's shard left the mesh
 
     def _configure_mesh(self, mesh: Mesh, n_shards: int) -> None:
         assert mesh.shape[AXIS] == n_shards, (mesh.shape, n_shards)
         self.mesh = mesh
         self.dp = int(mesh.shape.get(DP, 1))
         self._replicas = {}
+
+    def _held(self) -> list:
+        """The shards this process holds: all on a one-process mesh, its
+        cell's on a rank mesh."""
+        cell = self.mesh.cell
+        return list(range(self.n_shards)) if cell is None else [cell[1]]
+
+    def _device(self, s: int) -> torch.device:
+        """The device shard s lives on in this process."""
+        cell = self.mesh.cell
+        return self.mesh.devices[cell if cell is not None else (0, s)]
+
+    def _per_shard(self, fn) -> list:
+        """fn(s) for every shard s, in shard order: on a rank mesh each
+        rank computes its own shard's and the values are gathered."""
+        if self.mesh.comm is None:
+            return [fn(s) for s in range(self.n_shards)]
+        got = self.mesh.comm.all_gather_object(fn(self.mesh.cell[1]))
+        return got[:self.n_shards]   # dp group 0: cells (0, s)
 
     # ------------------------------------------------------------- build
 
@@ -147,15 +213,17 @@ class ShardedIVF:
         worker.cpp "train" command: each worker trains its own IVF on its
         shard); ids are global corpus row ids."""
         parts = split_round_robin(np.asarray(xb, np.float32), self.n_shards)
-        self.shards = []
-        for s, (rows, gids) in enumerate(parts):
-            if rows.shape[0] < self.nlist:
-                raise ValueError(
-                    f"shard holds {rows.shape[0]} rows < nlist="
-                    f"{self.nlist}: k-means cannot train {self.nlist} "
-                    f"centroids; lower nlist or n_shards")
+        small = min(rows.shape[0] for rows, _ in parts)
+        if small < self.nlist:
+            raise ValueError(
+                f"shard holds {small} rows < nlist={self.nlist}: k-means "
+                f"cannot train {self.nlist} centroids; lower nlist or "
+                f"n_shards")
+        self.shards = [None] * self.n_shards
+        for s in self._held():
+            rows, gids = parts[s]
             idx = IVFFlatIndex(self.d, self.nlist, self.metric,
-                               device=self.mesh.devices[0, s],
+                               device=self._device(s),
                                storage=self.storage)
             nt = max(int(rows.shape[0] * train_frac), self.nlist)
             idx.train(rows[:nt])
@@ -164,7 +232,7 @@ class ShardedIVF:
             idx.ensure_interdis()
             idx.add(rows, ids=gids)
             _ = idx.arrays
-            self.shards.append(idx)
+            self.shards[s] = idx
         self.mr = None
         self._replicas = {}
 
@@ -173,11 +241,14 @@ class ShardedIVF:
         runs, built from a DOMINATING row profile (the elementwise max of
         the shards' descending rows-per-list), so its per-stage coverage
         guarantee holds on every shard."""
-        rc = min([row_cap] + [s.arrays.cap for s in self.shards])
+        rc = min([row_cap] + self._per_shard(
+            lambda s: self.shards[s].arrays.cap))
         self._mr_row_cap = rc
-        self.mr = [build_multirow(s.arrays, rc) for s in self.shards]
-        descs = np.stack([np.sort(m.rows_per_list.cpu().numpy())[::-1]
-                          for m in self.mr])
+        self.mr = [None] * self.n_shards
+        for s in self._held():
+            self.mr[s] = build_multirow(self.shards[s].arrays, rc)
+        descs = np.stack(self._per_shard(lambda s: np.sort(
+            self.mr[s].rows_per_list.cpu().numpy())[::-1]))
         self._mr_plan = plan_oneshot(np.max(descs, axis=0), self.nlist)
         self._replicas = {}
 
@@ -189,42 +260,51 @@ class ShardedIVF:
         partition's ground truth (reference worker.cpp:153-235 +
         dist/gt.cpp per-shard GT)."""
         self.max_topk = max_topk
-        traces = []
-        for idx in self.shards:
+        traces = {}
+        for s in self._held():
+            idx = self.shards[s]
             gt_D, _ = idx.exact_search(xq, max_topk)
             t, _ = train_profile(idx.arrays, xq, gt_D, max_topk,
                                  self.metric, bs=bs)
-            traces.append(t)
-        max_bins = max(int(t.phi.shape[1]) for t in traces)
+            traces[s] = {f: getattr(t, f).cpu().numpy()
+                         for f in ("phi", "u", "std", "n_bins")}
+        traces = self._per_shard(traces.get)
+        max_bins = max(t["phi"].shape[1] for t in traces)
 
         def stack(field, fill):
-            out = []
-            for t in traces:
-                a = getattr(t, field).cpu().numpy()
-                out.append(np.pad(a, ((0, 0), (0, max_bins - a.shape[1])),
-                                  constant_values=fill))
-            return np.stack(out)
+            return np.stack([np.pad(
+                t[field], ((0, 0), (0, max_bins - t[field].shape[1])),
+                constant_values=fill) for t in traces])
         self._set_traces(dict(
             phi=stack("phi", np.inf), u=stack("u", 0.0),
             std=stack("std", 0.0),
-            n_bins=np.stack([t.n_bins.cpu().numpy() for t in traces])))
+            n_bins=np.stack([t["n_bins"] for t in traces])))
 
     def _set_traces(self, host: dict | None) -> None:
         """Adopt stacked host profiles and stage shard i's slice on its
         device."""
         self._host_traces = host
-        self.traces = None if host is None else [
-            traces_from_arrays(host["phi"][i], host["u"][i], host["std"][i],
-                               host["n_bins"][i], idx.device)
-            for i, idx in enumerate(self.shards)]
+        self.traces = None
+        if host is not None:
+            self.traces = [None] * self.n_shards
+            for i in self._held():
+                self.traces[i] = traces_from_arrays(
+                    host["phi"][i], host["u"][i], host["std"][i],
+                    host["n_bins"][i], self.shards[i].device)
         self._replicas = {}
 
     # -------------------------------------------------------- persistence
 
     def save(self, dirpath: str) -> None:
         """Per-shard index files + the stacked profiles, in the JAX
-        package's layout (meta.json, shard{i}.npz, traces.npz)."""
+        package's layout (meta.json, shard{i}.npz, traces.npz). On a rank
+        mesh each rank of dp group 0 writes its shard's file and rank 0
+        the rest; every rank returns when the directory is whole."""
         os.makedirs(dirpath, exist_ok=True)
+        cell = self.mesh.cell
+        if cell is not None and cell[0] > 0:   # a dp replica: no file
+            self.mesh.comm.barrier()
+            return
         meta = dict(d=self.d, nlist=self.nlist, n_shards=self.n_shards,
                     storage=self.storage,
                     metric=self.metric.value, multipler=self.multipler,
@@ -232,19 +312,23 @@ class ShardedIVF:
                     max_topk=getattr(self, "max_topk", None),
                     multirow_row_cap=(int(self._mr_row_cap)
                                       if self.mr is not None else None))
-        with open(os.path.join(dirpath, "meta.json"), "w") as f:
-            json.dump(meta, f)
-        for i, idx in enumerate(self.shards):
-            save_index(idx, os.path.join(dirpath, f"shard{i}.npz"))
-        if self._host_traces is not None:
-            save_trace_set(traces_from_arrays(
-                **self._host_traces, device="cpu"),
-                os.path.join(dirpath, "traces.npz"))
+        for i in self._held():
+            save_index(self.shards[i], os.path.join(dirpath, f"shard{i}.npz"))
+        if cell is None or cell == (0, 0):
+            with open(os.path.join(dirpath, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            if self._host_traces is not None:
+                save_trace_set(traces_from_arrays(
+                    **self._host_traces, device="cpu"),
+                    os.path.join(dirpath, "traces.npz"))
+        if cell is not None:
+            self.mesh.comm.barrier()
 
     @classmethod
     def load(cls, dirpath: str, mesh: Mesh | None = None) -> "ShardedIVF":
         """A directory either package saved, shard i on the mesh's device
-        for it."""
+        for it; on a rank mesh each rank reads the meta, the profiles and
+        its own shard only."""
         with open(os.path.join(dirpath, "meta.json")) as f:
             meta = json.load(f)
         s = cls(meta["d"], meta["nlist"], meta["n_shards"],
@@ -254,9 +338,10 @@ class ShardedIVF:
         s.std_m = meta["std_m"]
         if meta.get("max_topk"):
             s.max_topk = meta["max_topk"]
-        s.shards = [load_index(os.path.join(dirpath, f"shard{i}.npz"),
-                               device=s.mesh.devices[0, i])
-                    for i in range(meta["n_shards"])]
+        s.shards = [None] * s.n_shards
+        for i in s._held():
+            s.shards[i] = load_index(os.path.join(dirpath, f"shard{i}.npz"),
+                                     device=s._device(i))
         tp = os.path.join(dirpath, "traces.npz")
         if os.path.exists(tp):
             t = load_trace_set(tp, "cpu")
@@ -274,13 +359,29 @@ class ShardedIVF:
         so recovery never reads the failed device; global recall degrades
         by at most the dropped partition's share of the corpus. The
         default mesh is the old one minus the dropped shard's device
-        column; the one-shot plan is rebuilt from the survivors."""
+        column; the one-shot plan is rebuilt from the survivors.
+
+        On a rank mesh every rank of the world calls it (without
+        ``mesh``): the survivors' ranks form a new group, and on the
+        dropped shard's ranks any later search raises."""
         assert self.n_shards > 1, "cannot drop the last shard"
         assert 0 <= shard_id < self.n_shards
         # build and validate the replacement mesh before mutating state
-        if mesh is None:
-            mesh = Mesh(np.delete(self.mesh.devices, shard_id, axis=1),
-                        self.mesh.axis_names)
+        old = self.mesh
+        if old.comm is not None:
+            assert mesh is None, "a rank mesh drops its own column"
+            S = self.n_shards
+            comm = old.comm.subset([c for c in range(len(old.comm.ranks))
+                                    if c % S != shard_id])
+            if old.cell[1] == shard_id:
+                self.dropped = True
+                self.shards = self.mr = self.traces = None
+                return
+            mesh = Mesh(np.delete(old.devices, shard_id, axis=1),
+                        old.axis_names, comm)
+        elif mesh is None:
+            mesh = Mesh(np.delete(old.devices, shard_id, axis=1),
+                        old.axis_names)
         assert mesh.shape[AXIS] == self.n_shards - 1, (
             mesh.shape, self.n_shards - 1)
         host = self._host_traces
@@ -314,6 +415,9 @@ class ShardedIVF:
     def _groups(self, q) -> tuple:
         """The queries as float32 numpy, and the slice of the batch each
         dp group serves."""
+        if self.dropped:
+            raise RuntimeError("this rank's shard was dropped "
+                               "(drop_shard): it serves no more searches")
         q = np.asarray(q, np.float32)
         if q.ndim != 2 or q.shape[1] != self.d:
             raise ValueError(f"queries must be [n, {self.d}], got "
@@ -324,19 +428,32 @@ class ShardedIVF:
         n = q.shape[0] // self.dp
         return q, [slice(g * n, (g + 1) * n) for g in range(self.dp)]
 
+    def _run_cells(self, fn) -> list:
+        """fn(g, s, device) -> (vals, ids[, n_scanned]) tensors for every
+        cell of the mesh, as [dp][S] lists: one process runs each cell; on
+        a rank mesh each rank runs its own, and one all_gather brings
+        every rank all cells' results, on its device."""
+        S = self.n_shards
+        cell = self.mesh.cell
+        if cell is None:
+            return [[fn(g, s, self.mesh.devices[g, s]) for s in range(S)]
+                    for g in range(self.dp)]
+        got = self.mesh.comm.all_gather(fn(*cell, self.mesh.devices[cell]))
+        return [got[g * S:(g + 1) * S] for g in range(self.dp)]
+
     def search(self, q: np.ndarray, k: int, nprobe: int):
         """Fixed-nprobe sharded search: each shard's padded-list scan (K2),
         then the merge. With a dp axis, each dp group serves its slice of
         the batch."""
         q, groups = self._groups(q)
+
+        def cell(g, s, dev):
+            return ivf_search_fixed(
+                self._state(s, dev)[0], torch.as_tensor(q[groups[g]],
+                                                        device=dev),
+                k, nprobe, self.metric)
         vals, ids = [], []
-        for g, sl in enumerate(groups):
-            per = []
-            for s in range(self.n_shards):
-                dev = self.mesh.devices[g, s]
-                per.append(ivf_search_fixed(
-                    self._state(s, dev)[0], torch.as_tensor(q[sl], device=dev),
-                    k, nprobe, self.metric))
+        for per in self._run_cells(cell):
             v, i = _merge_over_shards(per, k, self.metric)
             vals.append(v.cpu().numpy())
             ids.append(i.cpu().numpy())
@@ -349,44 +466,43 @@ class ShardedIVF:
         padded ``bounded_search`` on its own profile, then the global top
         ``max_topk`` is merged. Returns (vals, ids, per-shard n_scanned
         [S, B])."""
+        q, groups = self._groups(q)
         assert self.traces is not None, "train_profiles first"
         max_topk = max_topk or self.max_topk
-        q, groups = self._groups(q)
         acc = np.asarray(require_acc, np.float32)
+
+        def cell(g, s, dev):
+            arrays, mr, traces = self._state(s, dev)
+            sl = groups[g]
+            qt = torch.as_tensor(q[sl], device=dev)
+            args = (traces, qt, torch.as_tensor(acc[sl], device=dev),
+                    torch.tensor(self.multipler, dtype=torch.float32,
+                                 device=dev),
+                    torch.tensor(self.std_m, dtype=torch.float32,
+                                 device=dev),
+                    torch.zeros(qt.shape[0], dtype=torch.float32,
+                                device=dev),
+                    query_k, max_topk, self.metric)
+            if mr is not None:
+                out = bounded_oneshot_mr(arrays, mr, *args, self._mr_plan)
+            else:
+                out = bounded_search(arrays, *args)
+            return out[0], out[1], out[3]
         vals, ids, n_scanned = [], [], []
-        for g, sl in enumerate(groups):
-            per, nsc = [], []
-            for s in range(self.n_shards):
-                dev = self.mesh.devices[g, s]
-                arrays, mr, traces = self._state(s, dev)
-                qt = torch.as_tensor(q[sl], device=dev)
-                args = (traces, qt, torch.as_tensor(acc[sl], device=dev),
-                        torch.tensor(self.multipler, dtype=torch.float32,
-                                     device=dev),
-                        torch.tensor(self.std_m, dtype=torch.float32,
-                                     device=dev),
-                        torch.zeros(qt.shape[0], dtype=torch.float32,
-                                    device=dev),
-                        query_k, max_topk, self.metric)
-                if mr is not None:
-                    out = bounded_oneshot_mr(arrays, mr, *args, self._mr_plan)
-                else:
-                    out = bounded_search(arrays, *args)
-                per.append(out[:2])
-                nsc.append(out[3].cpu().numpy())
+        for per in self._run_cells(cell):
             v, i = _merge_over_shards(per, max_topk, self.metric)
             vals.append(v.cpu().numpy())
             ids.append(i.cpu().numpy())
-            n_scanned.append(np.stack(nsc))
+            n_scanned.append(np.stack([p[2].cpu().numpy() for p in per]))
         return (np.concatenate(vals), np.concatenate(ids).astype(np.int64),
                 np.concatenate(n_scanned, axis=1))
 
 
 def _merge_over_shards(per, k: int, metric: Metric):
-    """reduce.cpp's per-query merge: each shard's (vals [B, k], ids) on
-    the first shard's device, laid out [B, S * k] in shard order, then the
-    stable top-k (ties to the lower shard)."""
+    """reduce.cpp's per-query merge: each shard's (vals [B, k], ids, ...)
+    on the first shard's device, laid out [B, S * k] in shard order, then
+    the stable top-k (ties to the lower shard)."""
     dev = per[0][0].device
-    return topk_scores(torch.cat([v.to(dev) for v, _ in per], dim=1),
-                       torch.cat([i.to(dev) for _, i in per], dim=1),
+    return topk_scores(torch.cat([p[0].to(dev) for p in per], dim=1),
+                       torch.cat([p[1].to(dev) for p in per], dim=1),
                        k, metric)

@@ -173,6 +173,17 @@ then
                    version; save -> load through a temporary directory
                    (equal ids and n_scanned); drop_shard(1) (no id of
                    shard 1, the survivors' n_scanned unchanged);
+  [ranks 10M]      the directory [sharded 10M] saved, served by four
+                   gloo ranks on the one card (parallel/distributed.py),
+                   each loading only its shard: the held-out window at
+                   bound 0.9 (timed from a barrier, median of 5), 200
+                   batch-1 queries, fixed nprobe 32 and drop_shard(1),
+                   each bitwise the one-process results on every rank or
+                   the run fails, worst recall@10 >= 0.9, K1 and the
+                   merge kernel launched in every rank's window and K2 in
+                   its fixed search; dp_kmeans on two ranks over 1M of
+                   the vectors (k 1024, 5 steps) bitwise the one-process
+                   run;
   [dp kmeans]      data-parallel k-means over the same 10M vectors, four
                    shards of the card, k 1024: two runs bitwise equal or
                    the run fails, the error against a one-shard run;
@@ -3852,7 +3863,8 @@ def sharded_10m_phase(corpus: dict, card: str, sq8_window_ms: float
     largest per-shard row scan; fixed-nprobe search at nprobe 32 equal to
     the per-shard results merged, K2 held at its largest call; save ->
     load equal; drop_shard(1): no id of shard 1, the survivors' n_scanned
-    unchanged."""
+    unchanged. Returns the saved directory (saved before the drop; the
+    caller removes it) and the results [ranks 10M] is held to."""
     import tempfile
     from auncel_tpu_torch import Metric
     from auncel_tpu_torch.autotune import recall_counts
@@ -3968,11 +3980,11 @@ def sharded_10m_phase(corpus: dict, card: str, sq8_window_ms: float
         f"recall@{K} {recall_counts(fv, gt_D, K, Metric.L2).mean() / K:.4f}"
         f" [{card}]")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        _, times["save"] = synced(lambda: s.save(tmp))
-        size = sum(os.path.getsize(os.path.join(tmp, f))
-                   for f in os.listdir(tmp))
-        loaded, times["load"] = synced(lambda: ShardedIVF.load(tmp))
+    tmp = tempfile.mkdtemp(prefix="sharded10m_")
+    _, times["save"] = synced(lambda: s.save(tmp))
+    size = sum(os.path.getsize(os.path.join(tmp, f))
+               for f in os.listdir(tmp))
+    loaded, times["load"] = synced(lambda: ShardedIVF.load(tmp))
     _, li, ln = loaded.search_bounded(q, acc, K)
     check(np.array_equal(li, ids) and np.array_equal(ln, nscan),
           "sharded save -> load changed the results")
@@ -4005,7 +4017,123 @@ def sharded_10m_phase(corpus: dict, card: str, sq8_window_ms: float
     for part in (train, n, launches):
         check_merges("sharded 10M", part)
     return {"launches": launches, "kernels": {"rowscan_scores": k1,
-                                              "scan_scores": k2}}
+                                              "scan_scores": k2},
+            "dir": tmp, "q": q, "gt_D": gt_D, "window": out,
+            "window_ms": window_ms, "latency_ms": lat, "fixed": (fv, fi),
+            "drop": (dv, di, dn)}
+
+
+# [ranks 10M]: the [sharded 10M] directory served by one gloo rank a shard
+# (parallel/distributed.py), all four ranks on the one card; dp_kmeans on
+# two ranks over the first RANKS_KM_N vectors
+RANKS10M, RANKS_REPS, RANKS_TIMEOUT_S = 4, 5, 120
+RANKS_KM_N, RANKS_KM_K, RANKS_KM_NITER = 1_000_000, 1024, 5
+RANKS_DEVICES = None   # each rank's own card (a CPU rehearsal: ["cpu"])
+
+
+def ranks_10m_phase(xb: np.ndarray, sh: dict, card: str) -> dict:
+    """[ranks 10M]: spawn 4 ranks on the card with gloo, each loading only
+    its shard of the saved [sharded 10M] directory; the held-out window at
+    bound 0.9 (5 more windows timed from a barrier, 200 batch-1 queries),
+    fixed nprobe 32 and drop_shard(1), each rank's results bitwise the
+    one-process ones or the run fails, worst recall@10 >= 0.9, K1 and the
+    merge kernel launched in every rank's window and K2 in its fixed
+    search; then dp_kmeans on 2 ranks bitwise the one-process run with 2
+    shards."""
+    import shutil
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.autotune import recall_counts
+    from auncel_tpu_torch.parallel import dp_kmeans, make_mesh
+    from auncel_tpu_torch.parallel.distributed import serve, spawn
+
+    tmp = sh["dir"]
+    np.save(os.path.join(tmp, "q.npy"), sh["q"])
+    np.save(os.path.join(tmp, "km.npy"), xb[:RANKS_KM_N])
+    (km_c, km_err), t_km = synced(lambda: dp_kmeans(
+        xb[:RANKS_KM_N], RANKS_KM_K, make_mesh(2, devices=RANKS_DEVICES),
+        niter=RANKS_KM_NITER))
+    torch.cuda.empty_cache()
+    q = os.path.join(tmp, "q.npy")
+    steps = [dict(op="load", dir=tmp, mesh=(RANKS10M, 1)),
+             dict(op="bounded", name="window", q=q, acc=1.0 - EPS, k=K,
+                  reps=RANKS_REPS, latency=N_LATENCY10M),
+             dict(op="fixed", name="fixed", q=q, k=K, nprobe=SHARD_NPROBE),
+             dict(op="drop", shard=1),
+             dict(op="bounded", name="drop", q=q, acc=1.0 - EPS, k=K),
+             dict(op="kmeans", name="km", x=os.path.join(tmp, "km.npy"),
+                  k=RANKS_KM_K, niter=RANKS_KM_NITER, shards=2)]
+    t_spawn = time.time()
+    try:
+        _, t_all = synced(lambda: spawn(
+            serve, RANKS10M, (steps, os.path.join(tmp, "out"),
+                              RANKS_DEVICES),
+            backend="gloo", timeout_s=RANKS_TIMEOUT_S, join_timeout_s=900))
+        ranks = [dict(np.load(os.path.join(tmp, "out", f"rank{r}.npz")))
+                 for r in range(RANKS10M)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def same(r: int, name: str, want) -> bool:
+        z = ranks[r]
+        return all(np.array_equal(z[f"{name}/{k}"], w) for k, w in zip(
+            ("vals", "ids", "n_scanned"), want))
+    names = ("rowscan_scores", "scan_scores", "topk_merge")
+    for r in range(RANKS10M):
+        check(same(r, "window", sh["window"]),
+              f"[ranks 10M] rank {r}'s window differs from one process")
+        check(same(r, "fixed", sh["fixed"]),
+              f"[ranks 10M] rank {r}'s fixed search differs from one "
+              "process")
+        if r == 1:
+            check("dropped" in str(ranks[r].get("drop/refused", "")),
+                  "[ranks 10M] the dropped rank served a search")
+        else:
+            check(same(r, "drop", sh["drop"]),
+                  f"[ranks 10M] rank {r} after drop_shard(1) differs from "
+                  "one process")
+        lw = dict(zip(names, ranks[r]["window/launches"].tolist()))
+        lf = dict(zip(names, ranks[r]["fixed/launches"].tolist()))
+        check(lw["rowscan_scores"] > 0 and lw["topk_merge"] > 0,
+              f"[ranks 10M] rank {r}'s window launched {lw}")
+        check(lf["scan_scores"] > 0, f"[ranks 10M] rank {r}'s fixed search "
+              f"launched {lf}")
+        log(f"[ranks 10M] rank {r} launches: window {lw}, fixed {lf}")
+    for r in (0, 1):
+        check(np.array_equal(ranks[r]["km/centroids"], km_c)
+              and float(ranks[r]["km/err"]) == km_err,
+              f"[ranks 10M] rank {r}'s dp_kmeans differs from one process")
+    cnt = recall_counts(ranks[0]["window/vals"], sh["gt_D"], K, Metric.L2)
+    check(cnt.min() >= K * (1.0 - EPS),
+          f"[ranks 10M] worst recall@{K} {cnt.min() / K}")
+    t = np.stack([z["times"] for z in ranks])   # start, init, load, ...
+    win = ranks[0]["window/window_s"] * 1e3
+    lat = ranks[0]["window/latency_s"] * 1e3
+    window_ms = float(np.median(win))
+    log(f"[ranks 10M] {RANKS10M} gloo ranks on the one card, each loading "
+        f"its shard of the [sharded 10M] directory: spawn "
+        f"{t[:, 0].max() - t_spawn:.2f} s, init "
+        f"{(t[:, 1] - t[:, 0]).max():.2f} s, load "
+        f"{(t[:, 2] - t[:, 1]).max():.2f} s (slowest rank each); the "
+        f"whole world {t_all:.2f} s [{card}]")
+    log(f"[ranks 10M] window of {N_TEST_Q} at bound {1.0 - EPS:.1f}, rank "
+        f"0 from a barrier to the merged result over {RANKS_REPS} repeats: "
+        + " ".join(f"{w:.2f}" for w in win) + f" ms (median "
+        f"{window_ms:.2f} ms; one process {sh['window_ms']:.2f} ms); worst "
+        f"recall@{K} {cnt.min() / K:.3f}; ids, values and n_scanned "
+        f"bitwise the one-process window on every rank [{card}]")
+    log(f"[ranks 10M latency] batch-1 over {N_LATENCY10M} held-out queries "
+        f"on rank 0: p50={np.percentile(lat, 50):.2f} ms p99="
+        f"{np.percentile(lat, 99):.2f} ms max={lat.max():.2f} ms (one "
+        f"process p50={np.percentile(sh['latency_ms'], 50):.2f} ms p99="
+        f"{np.percentile(sh['latency_ms'], 99):.2f} ms) [{card}]")
+    log(f"[ranks 10M] fixed nprobe {SHARD_NPROBE} and drop_shard(1) "
+        f"bitwise one process on every rank (the dropped rank refuses "
+        f"searches); dp_kmeans on 2 ranks over {RANKS_KM_N}x"
+        f"{xb.shape[1]}, k {RANKS_KM_K}, {RANKS_KM_NITER} steps, bitwise "
+        f"the one-process run ({t_km:.2f} s, err {km_err:.6g}); backend "
+        f"gloo; four processes share one card, so these times say nothing "
+        f"of four cards [{card}]")
+    return {"window_ms": window_ms}
 
 
 # [dp kmeans]: data-parallel k-means (parallel/kmeans_dp.py) over the
@@ -4507,6 +4635,10 @@ def main() -> int:
     sh = sharded_10m_phase(corpus10m, card, sq8["window_ms"])
     torch.cuda.empty_cache()
     log(f"[total] {time.perf_counter() - t0:.1f} s (the [sharded 10M] "
+        f"phase {time.perf_counter() - t_sh:.1f} s)")
+    t_sh = time.perf_counter()
+    ranks_10m_phase(corpus10m["xb"], sh, card)
+    log(f"[total] {time.perf_counter() - t0:.1f} s (the [ranks 10M] "
         f"phase {time.perf_counter() - t_sh:.1f} s)")
     t_sh = time.perf_counter()
     dp_kmeans_phase(corpus10m["xb"], card)

@@ -17,7 +17,9 @@ CPU's, and searches on the card equal the CPU's on the same graph: flat,
 SQ8, PQ and two-level storage, binary HNSW, BIVF_HNSW and IVF_HNSW with
 K2); four shards of a ShardedIVF on one card against the CPU, data-
 parallel k-means on the card (bitwise repeatable) and the C API's demo on
-the card; the running top-k merge kernel (``csrc/topk_merge.cu``) bit for
+the card; four gloo ranks on the one card, each loading its shard,
+bitwise the one-process ShardedIVF there, NCCL ranks sharing the card
+refused at once, and clone_index on the card; the running top-k merge kernel (``csrc/topk_merge.cu``) bit for
 bit its plain version at batch 1 to 1024, chunks from below k to 160k,
 k 1 to 128, at 1 to 600 segments a row (one launch, the row's state left
 as found), with empty, half-full, full and unsorted running results, and
@@ -1399,3 +1401,73 @@ def test_topk_merge_raises_above_its_k(k, metric):
                          k, metric)
             n_calls += 1
     assert topk_merge.launches == before + n_calls
+
+
+@pytest.mark.cuda
+def test_clone_index_on_the_card():
+    """clone_index on the card: the copy owns its tensors there, and an
+    add then a reset of it leave the original's search as it was."""
+    from torch_parity import check_clone
+    check_clone(_card())
+
+
+@pytest.mark.cuda
+def test_rank_mesh_on_one_card_is_bitwise_one_process(tmp_path):
+    """Four gloo ranks on the one card, each loading its shard of a saved
+    directory: bounded (the one-shot engine) and fixed search bitwise the
+    one-process ShardedIVF on the card, and every rank launched K1 and
+    the merge kernel in the bounded search and K2 in the fixed one."""
+    from auncel_tpu_torch.data import make_clustered_dataset
+    from auncel_tpu_torch.parallel import ShardedIVF, make_mesh
+    from auncel_tpu_torch.parallel.distributed import serve, spawn
+    _card()
+    ds = make_clustered_dataset(nb=16000, nq=40, d=32, n_clusters=64,
+                                seed=21)
+    s = ShardedIVF(ds.d, nlist=32, n_shards=4, storage="sq8",
+                   mesh=make_mesh(4, devices=["cpu"]))
+    s.build(ds.xb)
+    s.train_profiles(ds.xq[:20], max_topk=50)
+    s.multipler = 8.0
+    s.enable_multirow(64)
+    s.save(str(tmp_path / "sharded"))
+    card = ShardedIVF.load(str(tmp_path / "sharded"), mesh=make_mesh(4))
+    acc = np.full(40, 0.9, np.float32)
+    want = {"b": card.search_bounded(ds.xq, acc, 10),
+            "f": card.search(ds.xq, 10, 8)}
+    np.save(tmp_path / "q.npy", ds.xq)
+    q = str(tmp_path / "q.npy")
+    spawn(serve, 4, ([dict(op="load", dir=str(tmp_path / "sharded"),
+                           mesh=(4, 1)),
+                      dict(op="bounded", name="b", q=q, acc=0.9, k=10),
+                      dict(op="fixed", name="f", q=q, k=10, nprobe=8)],
+                     str(tmp_path / "out")),
+          backend="gloo", timeout_s=120, join_timeout_s=600)
+    for r in range(4):
+        z = np.load(tmp_path / "out" / f"rank{r}.npz")
+        for name, res in want.items():
+            for key, a in zip(("vals", "ids", "n_scanned"), res):
+                np.testing.assert_array_equal(z[f"{name}/{key}"], a)
+        k1, _, merge = z["b/launches"]
+        assert k1 > 0 and merge > 0, z["b/launches"]
+        assert z["f/launches"][1] > 0, z["f/launches"]
+
+
+@pytest.mark.cuda
+def test_nccl_ranks_on_one_card_raise(tmp_path):
+    """NCCL refuses two ranks on one card: the mesh raises on both ranks
+    before any NCCL collective, and the spawner fails at once."""
+    import time
+    import torch.distributed as dist
+    from auncel_tpu_torch.parallel.distributed import serve, spawn
+    _card()
+    if not dist.is_nccl_available():
+        pytest.skip("this torch has no NCCL")
+    np.save(tmp_path / "x.npy", np.zeros((64, 8), np.float32))
+    t0 = time.perf_counter()
+    with pytest.raises(Exception, match="NCCL needs a card a rank"):
+        spawn(serve, 2, ([dict(op="kmeans", name="km",
+                               x=str(tmp_path / "x.npy"), k=4, niter=1,
+                               shards=2)],
+                         str(tmp_path / "out"), ["cuda:0"]),
+              backend="nccl", timeout_s=60, join_timeout_s=300)
+    assert time.perf_counter() - t0 < 120

@@ -394,3 +394,52 @@ def topk_merge_model(rvals, rids, scores, ids, k: int, metric, n_seg: int,
         out_v[b, :win.numel()] = v
         out_i[b, :win.numel()] = torch.where(v == worst, -1, all_ids[b, win])
     return out_v, out_i
+
+
+def _tensors(obj, seen=None) -> dict:
+    """Every tensor reachable from obj's attributes: data_ptr -> tensor."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return {}
+    seen.add(id(obj))
+    if torch.is_tensor(obj):
+        return {obj.data_ptr(): obj} if obj.numel() else {}
+    out = {}
+    if isinstance(obj, (list, tuple)):
+        items = obj
+    elif isinstance(obj, dict):
+        items = obj.values()
+    elif hasattr(obj, "__dict__"):
+        items = vars(obj).values()
+    else:
+        return {}
+    for v in items:
+        out.update(_tensors(v, seen))
+    return out
+
+
+def check_clone(device):
+    """Mutating one copy (add, then reset) leaves the other's search as it
+    was, and the copies share no tensor."""
+    from auncel_tpu_torch.index.io import clone_index
+    from auncel_tpu_torch.index.ivf import IVFFlatIndex
+    rng = np.random.RandomState(0)
+    x = rng.randn(3000, 16).astype(np.float32)
+    idx = IVFFlatIndex(16, 16, device=device, storage="sq8")
+    idx.train(x)
+    idx.add(x)
+    idx.enable_multirow(64)
+    want = idx.search(x[:20], 5, nprobe=4)
+    copy = clone_index(idx)
+    assert not set(_tensors(idx)) & set(_tensors(copy))
+    assert copy.device == idx.device
+    for a, b in zip(copy.search(x[:20], 5, nprobe=4), want):
+        np.testing.assert_array_equal(a, b)
+    copy.add(x[:500] + 0.01)
+    assert copy.ntotal == 3500 and idx.ntotal == 3000
+    for a, b in zip(idx.search(x[:20], 5, nprobe=4), want):
+        np.testing.assert_array_equal(a, b)
+    copy.reset()
+    assert copy.ntotal == 0
+    for a, b in zip(idx.search(x[:20], 5, nprobe=4), want):
+        np.testing.assert_array_equal(a, b)
