@@ -5,8 +5,9 @@ Capability parity with the reference's ``AuxIndexStructures``
 (``RangeSearchResult``, ``IDSelectorRange``, ``IDSelectorBatch``,
 ``InterruptCallback``), the IVF ``range_search`` path
 (``IndexIVF.cpp:741-860``) and the global search counters
-(``indexIVF_stats``, IndexIVF.h:361-374). ``IVFFlatIndex.search`` adds to
-``ivf_stats``; ``FlatIndex.range_search`` returns a ``RangeSearchResult``.
+(``indexIVF_stats``, IndexIVF.h:361-374). ``IVFFlatIndex.search`` and
+``ErrorSys.search`` add to ``ivf_stats``; ``FlatIndex.range_search``
+returns a ``RangeSearchResult``.
 
 Range search returns a variable number of hits per query, so the device
 scores chunks of probe slots with K2 (``kernels/scan_scores.py``), the
@@ -65,16 +66,23 @@ class IDSelectorBatch(IDSelector):
 @dataclass
 class SearchStats:
     """Per-process counters, updated by the search entry points that opt
-    in."""
+    in: ``IVFFlatIndex.search`` (``nq``, ``nlist_scanned``, ``ndis``,
+    ``search_time_ms``) and ``ErrorSys``'s bounded search (``nq``,
+    ``nlist_scanned``, and ``waves``, ``waves_skipped``, ``rounds`` and
+    ``host_syncs``, ``tracing.py``)."""
     nq: int = 0
     nlist_scanned: int = 0
     ndis: int = 0
-    quantization_time_ms: float = 0.0
     search_time_ms: float = 0.0
+    waves: int = 0           # engine waves that launched a scan
+    waves_skipped: int = 0   # waves the skip test dropped
+    rounds: int = 0          # compaction rounds
+    host_syncs: int = 0      # calls that blocked the host on the card
 
     def reset(self):
         self.nq = self.nlist_scanned = self.ndis = 0
-        self.quantization_time_ms = self.search_time_ms = 0.0
+        self.waves = self.waves_skipped = self.rounds = self.host_syncs = 0
+        self.search_time_ms = 0.0
 
 
 ivf_stats = SearchStats()

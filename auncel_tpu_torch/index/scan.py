@@ -57,6 +57,7 @@ from auncel_tpu_torch.ops.topk import (init_topk, merge_topk_verified,
 from auncel_tpu_torch.kernels.rowscan import rowscan_scores
 from auncel_tpu_torch.kernels.scan_scores import (
     decode_slots, popcount8, scan_scores)
+from auncel_tpu_torch.tracing import K1, K2, SCAN, span, synced
 
 
 class IVFArrays(NamedTuple):
@@ -178,40 +179,51 @@ def scan_probe_range(
     stored code more than ``ht`` bits from the query's code for that probe
     slot is dropped (the worst value and id -1), as the JAX package masks
     it (``auncel_tpu/index/scan.py:260-266``)."""
-    check_storage(arrays)
-    k = vals.shape[-1]
-    B = q.shape[0]
-    if width <= 0 or B == 0:
+    with span(SCAN):
+        check_storage(arrays)
+        k = vals.shape[-1]
+        B = q.shape[0]
+        if width <= 0 or B == 0:
+            return vals, ids
+        rows = isinstance(arrays, RowArrays)
+        if rows and qcodes is not None:
+            raise ValueError("the polysemous filter takes PQ codes, which "
+                             "the multi-row layout does not hold")
+        C = probe_chunk or pick_probe_chunk(B, arrays.cap, width)
+        n_slots_avail = probe_lists.shape[1]
+        dev = q.device
+        q = arrays.scan_query(q).contiguous()
+        if isinstance(start, torch.Tensor):
+            start = torch.as_tensor(start, dtype=torch.int32, device=dev)
+        else:   # a host number, copied onto the card
+            start = synced(torch.as_tensor, start, dtype=torch.int32,
+                           device=dev)
+        start = start.expand(B)
+        codec = arrays.codec_kwargs()
+        kernel, kernel_span = (rowscan_scores, K1) if rows else \
+            (scan_scores, K2)
+        for c0 in range(0, width, C):
+            Cc = min(C, width - c0)
+            iks = start[:, None] + c0 + torch.arange(Cc, dtype=torch.int32,
+                                                     device=dev)[None, :]
+            safe_iks = iks.clamp(0, n_slots_avail - 1).long()
+            lists = torch.gather(probe_lists, 1, safe_iks)   # [B, Cc]
+            # a probe slot past its query's limit is list (row) -1: read by
+            # neither kernel
+            lists = torch.where(iks < limit[:, None], lists,
+                                -1).to(torch.int32)
+            if qcodes is not None:
+                codec["qcodes"] = torch.gather(
+                    qcodes, 1, safe_iks[:, :, None].expand(
+                        -1, -1, qcodes.shape[2])).contiguous()  # [B, Cc, M]
+                codec["ht"] = int(ht)
+            with span(kernel_span):
+                scores, sub_ids = kernel(
+                    arrays.db, arrays.db_sq, arrays.vec_ids,
+                    arrays.list_sizes, q, q_sq, lists, metric, **codec)
+            vals, ids = merge_topk_verified(vals, ids, scores, sub_ids, k,
+                                            metric)
         return vals, ids
-    rows = isinstance(arrays, RowArrays)
-    if rows and qcodes is not None:
-        raise ValueError("the polysemous filter takes PQ codes, which the "
-                         "multi-row layout does not hold")
-    C = probe_chunk or pick_probe_chunk(B, arrays.cap, width)
-    n_slots_avail = probe_lists.shape[1]
-    dev = q.device
-    q = arrays.scan_query(q).contiguous()
-    start = torch.as_tensor(start, dtype=torch.int32, device=dev).expand(B)
-    codec = arrays.codec_kwargs()
-    for c0 in range(0, width, C):
-        Cc = min(C, width - c0)
-        iks = start[:, None] + c0 + torch.arange(Cc, dtype=torch.int32,
-                                                 device=dev)[None, :]
-        safe_iks = iks.clamp(0, n_slots_avail - 1).long()
-        lists = torch.gather(probe_lists, 1, safe_iks)   # [B, Cc]
-        # a probe slot past its query's limit is list (row) -1: read by
-        # neither kernel
-        lists = torch.where(iks < limit[:, None], lists, -1).to(torch.int32)
-        if qcodes is not None:
-            codec["qcodes"] = torch.gather(
-                qcodes, 1, safe_iks[:, :, None].expand(
-                    -1, -1, qcodes.shape[2])).contiguous()    # [B, Cc, M]
-            codec["ht"] = int(ht)
-        scores, sub_ids = (rowscan_scores if rows else scan_scores)(
-            arrays.db, arrays.db_sq, arrays.vec_ids, arrays.list_sizes, q,
-            q_sq, lists, metric, **codec)
-        vals, ids = merge_topk_verified(vals, ids, scores, sub_ids, k, metric)
-    return vals, ids
 
 
 def ivf_full_scan(arrays: IVFArrays, q: torch.Tensor, k: int,
@@ -316,23 +328,24 @@ def masked_full_scan(rows: RowArrays, row_list: torch.Tensor,
     R = rows.vec_ids.shape[0]
     worst = worst_value(metric)
     W = max(1, min(block_rows, R)) * max(1, merge_blocks)
-    vals, ids = init_topk((B,), k, metric, q.device)
-    for s in range(0, R, W):
-        e = min(s + W, R)
-        scores, ranks, live = _block_scores(rows, row_list, inv_rank, q, q_sq,
-                                            s, e, metric)
-        active = (ranks < target[:, None])[:, :, None] & live[None]
-        scores = torch.where(active, scores, worst).reshape(B, -1)
-        sub_ids = torch.where(active, rows.vec_ids[s:e][None], -1).reshape(
-            B, -1)
-        if metric.lower_is_better:
-            improving = (scores.amin(1) < vals[:, k - 1]).any()
-        else:
-            improving = (scores.amax(1) > vals[:, k - 1]).any()
-        if bool(improving):
-            vals, ids = merge_topk_verified(vals, ids, scores, sub_ids, k,
-                                            metric)
-    return vals, ids
+    with span(SCAN):
+        vals, ids = init_topk((B,), k, metric, q.device)
+        for s in range(0, R, W):
+            e = min(s + W, R)
+            scores, ranks, live = _block_scores(rows, row_list, inv_rank, q,
+                                                q_sq, s, e, metric)
+            active = (ranks < target[:, None])[:, :, None] & live[None]
+            scores = torch.where(active, scores, worst).reshape(B, -1)
+            sub_ids = torch.where(active, rows.vec_ids[s:e][None],
+                                  -1).reshape(B, -1)
+            if metric.lower_is_better:
+                improving = (scores.amin(1) < vals[:, k - 1]).any()
+            else:
+                improving = (scores.amax(1) > vals[:, k - 1]).any()
+            if synced(bool, improving):
+                vals, ids = merge_topk_verified(vals, ids, scores, sub_ids,
+                                                k, metric)
+        return vals, ids
 
 
 def dense_stage_snapshots(rows: RowArrays, row_list: torch.Tensor,
@@ -355,29 +368,33 @@ def dense_stage_snapshots(rows: RowArrays, row_list: torch.Tensor,
     worst = worst_value(metric)
     lower = metric.lower_is_better
     n_st = len(stages)
-    bounds = torch.tensor(stages, dtype=torch.long, device=q.device)
-    snap = [torch.full((B, k), worst, dtype=torch.float32, device=q.device)
-            for _ in range(n_st)]
-    C = max(1, min(block_rows, R))
-    for s in range(0, R, C):
-        e = min(s + C, R)
-        scores, ranks, live = _block_scores(rows, row_list, inv_rank, q, q_sq,
-                                            s, e, metric)
-        flat = torch.where(live[None], scores, worst).reshape(B, -1)
-        # bucket j = #(stages <= rank); n_st is past the last stage
-        bucket = torch.bucketize(ranks.long(), bounds, right=True)
-        bucket = bucket[:, :, None].expand(scores.shape).reshape(B, -1)
-        best = torch.full((B, n_st + 1), worst, dtype=torch.float32,
-                          device=q.device).scatter_reduce(
-            1, bucket, flat, "amin" if lower else "amax")
-        kth = torch.stack([sn[:, k - 1] for sn in snap], dim=1)
-        gain = (best[:, :n_st] < kth) if lower else (best[:, :n_st] > kth)
-        for j, improving in enumerate(gain.any(0).tolist()):
-            if improving:
-                cand = torch.cat([snap[j], torch.where(bucket == j, flat,
-                                                       worst)], dim=-1)
-                snap[j] = torch.topk(cand, k, dim=-1, largest=not lower,
-                                     sorted=True).values
+    with span(SCAN):
+        bounds = synced(torch.tensor, stages, dtype=torch.long,
+                        device=q.device)
+        snap = [torch.full((B, k), worst, dtype=torch.float32,
+                           device=q.device) for _ in range(n_st)]
+        C = max(1, min(block_rows, R))
+        for s in range(0, R, C):
+            e = min(s + C, R)
+            scores, ranks, live = _block_scores(rows, row_list, inv_rank, q,
+                                                q_sq, s, e, metric)
+            flat = torch.where(live[None], scores, worst).reshape(B, -1)
+            # bucket j = #(stages <= rank); n_st is past the last stage
+            bucket = torch.bucketize(ranks.long(), bounds, right=True)
+            bucket = bucket[:, :, None].expand(scores.shape).reshape(B, -1)
+            best = torch.full((B, n_st + 1), worst, dtype=torch.float32,
+                              device=q.device).scatter_reduce(
+                1, bucket, flat, "amin" if lower else "amax")
+            kth = torch.stack([sn[:, k - 1] for sn in snap], dim=1)
+            gain = (best[:, :n_st] < kth) if lower else \
+                (best[:, :n_st] > kth)
+            for j, improving in enumerate(
+                    synced(torch.Tensor.tolist, gain.any(0))):
+                if improving:
+                    cand = torch.cat([snap[j], torch.where(
+                        bucket == j, flat, worst)], dim=-1)
+                    snap[j] = torch.topk(cand, k, dim=-1, largest=not lower,
+                                         sorted=True).values
     outs = []
     run = torch.full((B, k), worst, dtype=torch.float32, device=q.device)
     for j in range(n_st):

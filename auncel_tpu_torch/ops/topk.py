@@ -11,6 +11,7 @@ the card (``kernels/topk_merge.py``).
 
 import torch
 
+from auncel_tpu_torch.tracing import MERGE, span
 from auncel_tpu_torch.types import Metric, worst_value
 
 
@@ -58,7 +59,8 @@ def merge_topk_verified(rvals: torch.Tensor, rids: torch.Tensor,
     sort."""
     # imported here: the kernel's module takes merge_topk from this one
     from auncel_tpu_torch.kernels.topk_merge import topk_merge
-    return topk_merge(rvals, rids, scores, ids, k, metric)
+    with span(MERGE):
+        return topk_merge(rvals, rids, scores, ids, k, metric)
 
 
 def sort_scores(vals: torch.Tensor, ids: torch.Tensor,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from auncel_tpu_torch.types import Metric
+from auncel_tpu_torch.index.aux import ivf_stats
 from auncel_tpu_torch.index.scan import IVFArrays, coarse_rank, \
     scan_probe_range
 from auncel_tpu_torch.ops.distance import sqnorms
@@ -36,6 +37,7 @@ from auncel_tpu_torch.profile.geometry import boundary_distances, \
     n_boundaries, sum_angle
 from auncel_tpu_torch.profile.trace import TraceSet, trace_lookup
 from auncel_tpu_torch.profile.trainer import train_stages
+from auncel_tpu_torch.tracing import DECIDE, RANK, WAVE, span, synced
 
 FULL_OK_SLACK = 1.005       # cur_num's all-k fast path (IVF_pro.cpp:276)
 TRUE_RECALL_SLACK = 1.0005  # profile-mode true-recall count (IndexIVF.cpp:584)
@@ -225,7 +227,8 @@ def finish_scan(arrays: IVFArrays, q: torch.Tensor, q_sq: torch.Tensor,
     ``my_np``. Re-ranks the full centroid set for this straggler subset
     (phase A ranked only a prefix); exact top-k prefixes agree, so the
     already-scanned slots line up."""
-    _, cids = coarse_rank(arrays, q, metric, q_sq=q_sq)
+    with span(RANK):
+        _, cids = coarse_rank(arrays, q, metric, q_sq=q_sq)
     return scan_probe_range(arrays, q, q_sq, cids, vals, ids, my_np, start,
                             width, metric)
 
@@ -236,33 +239,36 @@ def _bounded_impl(arrays, traces, q, require_acc, multipler, std_m, query_k,
     B = q.shape[0]
     dev = q.device
     nlist = arrays.nlist
-    q_sq = sqnorms(q)
-    if ranked is None:
-        # decide-only needs the ranking prefix only: nlist/8 probe slots
-        # and the boundary window; finish_scan ranks all lists for the
-        # stragglers
-        rank_k = min(nlist, n_boundaries(nlist) + 1) if decide_only \
-            else nlist
-        rank_k = max(rank_k, min(nlist, nlist // 8))
-        cdis, cids = coarse_rank(arrays, q, metric, q_sq=q_sq,
-                                 rank_k=rank_k)
-        scan_slots = cids
-    else:
-        # externally ranked and remapped probes (the on-disk path): cids
-        # stay true list ids for the geometry, scan_slots index the blocks
-        cdis, cids, scan_slots = ranked
-    dtb = boundary_distances(cdis, cids, arrays.interdis, metric)
-    vals, ids = init_topk((B,), max_topk, metric, dev)
 
     def zeros_i():
         return torch.zeros(B, dtype=torch.int32, device=dev)
 
-    my_np, decided_at, stoped = zeros_i(), zeros_i(), zeros_i()  # 0: undecided
-    pre_val = torch.zeros(B, dtype=torch.float32, device=dev)
-    stops = torch.floor(require_acc * STAGNATION_FACTOR).to(torch.int32)
-    exact_mask = None
-    if decide_margin and query_k + 1 <= max_topk:
-        exact_mask = exact_topk_mask(require_acc, query_k)
+    with span(RANK):
+        q_sq = sqnorms(q)
+        if ranked is None:
+            # decide-only needs the ranking prefix only: nlist/8 probe
+            # slots and the boundary window; finish_scan ranks all lists
+            # for the stragglers
+            rank_k = min(nlist, n_boundaries(nlist) + 1) if decide_only \
+                else nlist
+            rank_k = max(rank_k, min(nlist, nlist // 8))
+            cdis, cids = coarse_rank(arrays, q, metric, q_sq=q_sq,
+                                     rank_k=rank_k)
+            scan_slots = cids
+        else:
+            # externally ranked and remapped probes (the on-disk path):
+            # cids stay true list ids for the geometry, scan_slots index
+            # the blocks
+            cdis, cids, scan_slots = ranked
+        dtb = boundary_distances(cdis, cids, arrays.interdis, metric)
+        vals, ids = init_topk((B,), max_topk, metric, dev)
+        # 0: undecided
+        my_np, decided_at, stoped = zeros_i(), zeros_i(), zeros_i()
+        pre_val = torch.zeros(B, dtype=torch.float32, device=dev)
+        stops = torch.floor(require_acc * STAGNATION_FACTOR).to(torch.int32)
+        exact_mask = None
+        if decide_margin and query_k + 1 <= max_topk:
+            exact_mask = exact_topk_mask(require_acc, query_k)
 
     boundaries = wave_boundaries(nlist)
     if decide_only:
@@ -271,35 +277,43 @@ def _bounded_impl(arrays, traces, q, require_acc, multipler, std_m, query_k,
     for wave_i, stage in enumerate(boundaries):
         width = stage - prev
         wave_prev, prev = prev, stage
-        # one host sync per wave. A wave is needed while a query is
-        # undecided or has budget beyond the wave's start; decided budgets
-        # never change, so once a wave is not needed no later one is.
-        undecided = my_np == 0
-        need, any_undecided = torch.stack(
-            [(undecided | (my_np > wave_prev)).any(),
-             undecided.any()]).tolist()
-        if not need:
-            break
-        limit = torch.where(my_np > 0, my_np, nlist)
-        vals, ids = scan_probe_range(arrays, q, q_sq, scan_slots, vals, ids,
-                                     limit, wave_prev, width, metric)
-        # the predicate only decides undecided queries
-        if stage > nlist // 8 or not any_undecided:
-            continue
-        recall = _decide_at_stage(traces, dtb, vals, stage, nlist, query_k,
-                                  max_topk, std_m, metric, exact_mask)
-        max_val = vals[:, max_topk - 1]  # worst of the running top-k
-        if wave_i > 0:
-            stoped = torch.where(max_val == pre_val, stoped + width, 0)
-            recall = torch.where(stoped >= stops, 1.0, recall)
-        pre_val = max_val
-        sat = (recall >= require_acc) & (my_np == 0)
-        if stage >= nlist // 8:  # the forced decision (IndexIVF.cpp:619)
-            sat = sat | (my_np == 0)
-        new_np = torch.floor(stage * multipler).to(torch.int32)
-        eff = sat & (new_np > 0)
-        my_np = torch.where(eff, new_np, my_np)
-        decided_at = torch.where(eff, stage, decided_at)
+        with span(WAVE):
+            # one host sync per wave. A wave is needed while a query is
+            # undecided or has budget beyond the wave's start; decided
+            # budgets never change, so once a wave is not needed no later
+            # one is.
+            undecided = my_np == 0
+            need, any_undecided = synced(torch.Tensor.tolist, torch.stack(
+                [(undecided | (my_np > wave_prev)).any(),
+                 undecided.any()]))
+            if not need:
+                ivf_stats.waves_skipped += 1
+                break
+            ivf_stats.waves += 1
+            limit = torch.where(my_np > 0, my_np, nlist)
+            vals, ids = scan_probe_range(arrays, q, q_sq, scan_slots, vals,
+                                         ids, limit, wave_prev, width, metric)
+            # the predicate only decides undecided queries
+            if stage > nlist // 8 or not any_undecided:
+                continue
+            with span(DECIDE):
+                recall = _decide_at_stage(traces, dtb, vals, stage, nlist,
+                                          query_k, max_topk, std_m, metric,
+                                          exact_mask)
+                max_val = vals[:, max_topk - 1]  # worst of the running top-k
+                if wave_i > 0:
+                    stoped = torch.where(max_val == pre_val, stoped + width,
+                                         0)
+                    recall = torch.where(stoped >= stops, 1.0, recall)
+                pre_val = max_val
+                sat = (recall >= require_acc) & (my_np == 0)
+                # the forced decision (IndexIVF.cpp:619)
+                if stage >= nlist // 8:
+                    sat = sat | (my_np == 0)
+                new_np = torch.floor(stage * multipler).to(torch.int32)
+                eff = sat & (new_np > 0)
+                my_np = torch.where(eff, new_np, my_np)
+                decided_at = torch.where(eff, stage, decided_at)
 
     if decide_only:
         return vals, ids, my_np, decided_at, cids, q_sq

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from auncel_tpu_torch.types import Metric
+from auncel_tpu_torch.index.aux import ivf_stats
 from auncel_tpu_torch.index.scan import (
     IVFArrays, coarse_rank, dense_stage_snapshots, inverse_rank,
     masked_full_scan, scan_probe_range)
@@ -57,6 +58,7 @@ from auncel_tpu_torch.profile.trace import TraceSet
 from auncel_tpu_torch.profile.bounded import (
     STAGNATION_FACTOR, wave_boundaries, _decide_at_stage, exact_topk_mask,
     true_recall)
+from auncel_tpu_torch.tracing import DECIDE, RANK, ROUND, WAVE, span, synced
 
 
 class MRPlan(NamedTuple):
@@ -247,25 +249,26 @@ def _mr_impl(arrays, mr, traces, q, require_acc, multipler, std_m, gt_kth,
     dev = q.device
     nlist = arrays.nlist
     cap_stage = max(nlist // 8, 1)
-    exact_mask = None
-    if decide_margin and query_k + 1 <= max_topk:
-        exact_mask = exact_topk_mask(require_acc, query_k)
-    q_sq = sqnorms(q)
-    rank_k = min(nlist, max(plan.S, n_boundaries(nlist) + 1))
-    cdis, cids = coarse_rank(arrays, q, metric, q_sq=q_sq, rank_k=rank_k)
-    dtb = boundary_distances(cdis, cids, arrays.interdis, metric)
-    row_slots, offsets = expand_probes(mr, cids, plan.S, plan.out_slots)
-    safe_rows = row_slots.clamp_min(0)
-    if init is None:
-        vals, ids = init_topk((B,), max_topk, metric, dev)
-        my_np, decided_at, stoped = _zeros_i(B, dev), _zeros_i(B, dev), \
-            _zeros_i(B, dev)
-        last_stage, frontier = _zeros_i(B, dev), _zeros_i(B, dev)
-        pre_val = torch.zeros(B, dtype=torch.float32, device=dev)
-    else:
-        (vals, ids, my_np, decided_at, stoped, pre_val, last_stage,
-         frontier) = init
-    stops = torch.floor(require_acc * STAGNATION_FACTOR).to(torch.int32)
+    with span(RANK):
+        exact_mask = None
+        if decide_margin and query_k + 1 <= max_topk:
+            exact_mask = exact_topk_mask(require_acc, query_k)
+        q_sq = sqnorms(q)
+        rank_k = min(nlist, max(plan.S, n_boundaries(nlist) + 1))
+        cdis, cids = coarse_rank(arrays, q, metric, q_sq=q_sq, rank_k=rank_k)
+        dtb = boundary_distances(cdis, cids, arrays.interdis, metric)
+        row_slots, offsets = expand_probes(mr, cids, plan.S, plan.out_slots)
+        safe_rows = row_slots.clamp_min(0)
+        if init is None:
+            vals, ids = init_topk((B,), max_topk, metric, dev)
+            my_np, decided_at, stoped = _zeros_i(B, dev), _zeros_i(B, dev), \
+                _zeros_i(B, dev)
+            last_stage, frontier = _zeros_i(B, dev), _zeros_i(B, dev)
+            pre_val = torch.zeros(B, dtype=torch.float32, device=dev)
+        else:
+            (vals, ids, my_np, decided_at, stoped, pre_val, last_stage,
+             frontier) = init
+        stops = torch.floor(require_acc * STAGNATION_FACTOR).to(torch.int32)
 
     def cur_goal(my_np, stage):
         """Row target now: a decided query's own budget, else this stage."""
@@ -274,44 +277,49 @@ def _mr_impl(arrays, mr, traces, q, require_acc, multipler, std_m, gt_kth,
         return _goal_rows(offsets, g.clamp_min(1))
 
     for (stage, width, decide, _is_main) in plan.waves:
-        goal = cur_goal(my_np, stage)
-        # skip a wave nobody needs: an undecided query always has rows
-        # left before its next boundary, so frontier < goal covers it
-        if not bool((frontier < goal).any()):
-            continue
-        vals, ids = scan_probe_range(mr.rows, q, q_sq, safe_rows, vals, ids,
-                                     goal, frontier, width, metric)
-        frontier = torch.minimum(goal, frontier + width)
-        if not decide:
-            continue
-        is_forced = stage >= cap_stage
-        complete = frontier >= offsets[:, min(stage, plan.S) - 1]
-        recall = _decide_at_stage(traces, dtb, vals, stage, nlist, query_k,
-                                  max_topk, std_m, metric, exact_mask)
-        # stagnation advances by the list gap since the last COMPLETE
-        # boundary (the worst top-k value is monotone)
-        max_val = vals[:, max_topk - 1]
-        seen = last_stage > 0
-        cmp_ok = complete & seen
-        stoped = torch.where(cmp_ok & (max_val == pre_val),
-                             stoped + (stage - last_stage),
-                             torch.where(cmp_ok, 0, stoped))
-        recall = torch.where((stoped >= stops) & seen, 1.0, recall)
-        pre_val = torch.where(complete, max_val, pre_val)
-        last_stage = torch.where(complete, stage, last_stage)
+        with span(WAVE):
+            goal = cur_goal(my_np, stage)
+            # skip a wave nobody needs: an undecided query always has rows
+            # left before its next boundary, so frontier < goal covers it
+            if not synced(bool, (frontier < goal).any()):
+                ivf_stats.waves_skipped += 1
+                continue
+            ivf_stats.waves += 1
+            vals, ids = scan_probe_range(mr.rows, q, q_sq, safe_rows, vals,
+                                         ids, goal, frontier, width, metric)
+            frontier = torch.minimum(goal, frontier + width)
+            if not decide:
+                continue
+            with span(DECIDE):
+                is_forced = stage >= cap_stage
+                complete = frontier >= offsets[:, min(stage, plan.S) - 1]
+                recall = _decide_at_stage(traces, dtb, vals, stage, nlist,
+                                          query_k, max_topk, std_m, metric,
+                                          exact_mask)
+                # stagnation advances by the list gap since the last
+                # COMPLETE boundary (the worst top-k value is monotone)
+                max_val = vals[:, max_topk - 1]
+                seen = last_stage > 0
+                cmp_ok = complete & seen
+                stoped = torch.where(cmp_ok & (max_val == pre_val),
+                                     stoped + (stage - last_stage),
+                                     torch.where(cmp_ok, 0, stoped))
+                recall = torch.where((stoped >= stops) & seen, 1.0, recall)
+                pre_val = torch.where(complete, max_val, pre_val)
+                last_stage = torch.where(complete, stage, last_stage)
 
-        sat = complete & (recall >= require_acc) & (my_np == 0)
-        if is_forced:
-            sat = sat | (complete & (my_np == 0))
-        new_np = torch.floor(stage * multipler).to(torch.int32)
-        if is_forced:
-            # the forced decision must take effect (else the A2 loop could
-            # never finish); its conservative floor is a full scan, as in
-            # the reference's control flow
-            new_np = torch.where(new_np > 0, new_np, nlist)
-        eff = sat & (new_np > 0)
-        my_np = torch.where(eff, new_np, my_np)
-        decided_at = torch.where(eff, stage, decided_at)
+                sat = complete & (recall >= require_acc) & (my_np == 0)
+                if is_forced:
+                    sat = sat | (complete & (my_np == 0))
+                new_np = torch.floor(stage * multipler).to(torch.int32)
+                if is_forced:
+                    # the forced decision must take effect (else the A2
+                    # loop could never finish); its conservative floor is a
+                    # full scan, as in the reference's control flow
+                    new_np = torch.where(new_np > 0, new_np, nlist)
+                eff = sat & (new_np > 0)
+                my_np = torch.where(eff, new_np, my_np)
+                decided_at = torch.where(eff, stage, decided_at)
 
     if decide_only:
         return (vals, ids, my_np, decided_at, stoped, pre_val, last_stage,
@@ -415,44 +423,51 @@ def _dense_decide(arrays, mr, traces, q, q_sq, require_acc, multipler,
                            plan.a1.waves + plan.a2.waves if dec}))
     if not stages:
         stages = tuple(b for b in wave_boundaries(nlist) if b <= cap_stage)
-    rank_k = min(nlist, max(cap_stage, n_boundaries(nlist) + 1))
-    cdis, cids = coarse_rank(arrays, q, metric, q_sq=q_sq, rank_k=rank_k)
-    dtb = boundary_distances(cdis, cids, arrays.interdis, metric)
-    # lists outside the decide window get rank nlist (outside every stage)
-    inv_rank = inverse_rank(cids[:, :cap_stage], nlist)
-    snaps = dense_stage_snapshots(
-        mr.rows, mr.row_list, inv_rank, q, q_sq, stages, max_topk, metric,
-        plan.decide_block)
+    with span(RANK):
+        rank_k = min(nlist, max(cap_stage, n_boundaries(nlist) + 1))
+        cdis, cids = coarse_rank(arrays, q, metric, q_sq=q_sq, rank_k=rank_k)
+        dtb = boundary_distances(cdis, cids, arrays.interdis, metric)
+        # lists outside the decide window get rank nlist (outside every
+        # stage)
+        inv_rank = inverse_rank(cids[:, :cap_stage], nlist)
+        stops = torch.floor(require_acc * STAGNATION_FACTOR).to(torch.int32)
+        exact_mask = None
+        if decide_margin and query_k + 1 <= max_topk:
+            exact_mask = exact_topk_mask(require_acc, query_k)
+        my_np, decided_at, stoped = _zeros_i(B, dev), _zeros_i(B, dev), \
+            _zeros_i(B, dev)
+        pre_val = torch.zeros(B, dtype=torch.float32, device=dev)
+    # the ladder's one shared pass stands for its waves
+    ivf_stats.waves += 1
+    with span(WAVE):
+        snaps = dense_stage_snapshots(
+            mr.rows, mr.row_list, inv_rank, q, q_sq, stages, max_topk,
+            metric, plan.decide_block)
 
-    stops = torch.floor(require_acc * STAGNATION_FACTOR).to(torch.int32)
-    exact_mask = None
-    if decide_margin and query_k + 1 <= max_topk:
-        exact_mask = exact_topk_mask(require_acc, query_k)
-    my_np, decided_at, stoped = _zeros_i(B, dev), _zeros_i(B, dev), \
-        _zeros_i(B, dev)
-    pre_val = torch.zeros(B, dtype=torch.float32, device=dev)
     last_stage = 0
     for si, stage in enumerate(stages):
-        vals = snaps[:, si]
-        recall = _decide_at_stage(traces, dtb, vals, stage, nlist, query_k,
-                                  max_topk, std_m, metric, exact_mask)
-        max_val = vals[:, max_topk - 1]
-        if last_stage > 0:   # every boundary is complete here
-            stoped = torch.where(max_val == pre_val,
-                                 stoped + (stage - last_stage), 0)
-            recall = torch.where(stoped >= stops, 1.0, recall)
-        pre_val = max_val
-        last_stage = stage
-        is_forced = stage >= cap_stage
-        sat = (recall >= require_acc) & (my_np == 0)
-        if is_forced:
-            sat = sat | (my_np == 0)
-        new_np = torch.floor(stage * multipler).to(torch.int32)
-        if is_forced:
-            new_np = torch.where(new_np > 0, new_np, nlist)
-        eff = sat & (new_np > 0)
-        my_np = torch.where(eff, new_np, my_np)
-        decided_at = torch.where(eff, stage, decided_at)
+        with span(DECIDE):
+            vals = snaps[:, si]
+            recall = _decide_at_stage(traces, dtb, vals, stage, nlist,
+                                      query_k, max_topk, std_m, metric,
+                                      exact_mask)
+            max_val = vals[:, max_topk - 1]
+            if last_stage > 0:   # every boundary is complete here
+                stoped = torch.where(max_val == pre_val,
+                                     stoped + (stage - last_stage), 0)
+                recall = torch.where(stoped >= stops, 1.0, recall)
+            pre_val = max_val
+            last_stage = stage
+            is_forced = stage >= cap_stage
+            sat = (recall >= require_acc) & (my_np == 0)
+            if is_forced:
+                sat = sat | (my_np == 0)
+            new_np = torch.floor(stage * multipler).to(torch.int32)
+            if is_forced:
+                new_np = torch.where(new_np > 0, new_np, nlist)
+            eff = sat & (new_np > 0)
+            my_np = torch.where(eff, new_np, my_np)
+            decided_at = torch.where(eff, stage, decided_at)
     # a ladder without a forced boundary floors to a full scan
     my_np = torch.where(my_np == 0, nlist, my_np)
     return my_np, decided_at
@@ -468,27 +483,33 @@ def _dense_rounds(arrays, mr, q, q_sq, vals, ids, pending, target,
     depend only on its own rows and budget, never on its sub-batch."""
     nlist = arrays.nlist
     cap = plan.dense_cap
-    n_left = int(pending.sum())
+    n_left = synced(int, pending.sum())
     most = -(-n_left // max(cap, 1))
     rounds = 0
     while n_left:
         rounds += 1
         _round_guard(rounds, most, "dense rounds")
-        # pending first; a stable sort on an integer key, as jnp.argsort
-        idx = torch.argsort((~pending).to(torch.int32), stable=True)[:cap]
-        take = pending[idx]
-        subq, sub_sq = q[idx], q_sq[idx]
-        _, cids_full = coarse_rank(arrays, subq, metric, q_sq=sub_sq)
-        tgt = torch.where(take, target[idx].clamp(1, nlist), 0)
-        v, i = masked_full_scan(mr.rows, mr.row_list,
-                                inverse_rank(cids_full, nlist), tgt, subq,
-                                sub_sq, max_topk, metric, plan.dense_block,
-                                plan.dense_merge)
-        vals = vals.index_copy(0, idx, torch.where(take[:, None], v,
-                                                   vals[idx]))
-        ids = ids.index_copy(0, idx, torch.where(take[:, None], i, ids[idx]))
-        pending = pending.index_fill(0, idx, False)
-        n_left = int(pending.sum())
+        ivf_stats.rounds += 1
+        with span(ROUND):
+            # pending first; a stable sort on an integer key, as
+            # jnp.argsort
+            idx = torch.argsort((~pending).to(torch.int32),
+                                stable=True)[:cap]
+            take = pending[idx]
+            subq, sub_sq = q[idx], q_sq[idx]
+            with span(RANK):
+                _, cids_full = coarse_rank(arrays, subq, metric, q_sq=sub_sq)
+                inv_rank = inverse_rank(cids_full, nlist)
+            tgt = torch.where(take, target[idx].clamp(1, nlist), 0)
+            v, i = masked_full_scan(mr.rows, mr.row_list, inv_rank, tgt,
+                                    subq, sub_sq, max_topk, metric,
+                                    plan.dense_block, plan.dense_merge)
+            vals = vals.index_copy(0, idx, torch.where(take[:, None], v,
+                                                       vals[idx]))
+            ids = ids.index_copy(0, idx, torch.where(take[:, None], i,
+                                                     ids[idx]))
+            pending = pending.index_fill(0, idx, False)
+            n_left = synced(int, pending.sum())
     return vals, ids
 
 
@@ -526,32 +547,40 @@ def _tail_rounds(arrays, mr, q, q_sq, vals, ids, frontier, covered, target,
     back. Returns (vals, ids, frontier, covered)."""
     nlist = arrays.nlist
     unfinished = covered < target
-    n_left = int(unfinished.sum())
+    n_left = synced(int, unfinished.sum())
     most = -(-n_left // max(tail_cap, 1))
     rounds = 0
     while n_left:
         rounds += 1
         _round_guard(rounds, most, "tail rounds")
-        key = (~unfinished).to(torch.int32) * (2 * nlist) - (target - covered)
-        idx = torch.argsort(key, stable=True)[:tail_cap]
-        subq, sub_sq = q[idx], q_sq[idx]
-        _, cids = coarse_rank(arrays, subq, metric, q_sq=sub_sq)
-        row_slots, offsets = expand_probes(mr, cids, nlist, tail_out)
-        safe_rows = row_slots.clamp_min(0)
-        goal = _goal_rows(offsets, target[idx])
-        v, i, f = vals[idx], ids[idx], frontier[idx]
-        for width in tail_widths:
-            if not bool((f < goal).any()):
-                break   # frontiers only grow: no later width is needed
-            v, i = scan_probe_range(mr.rows, subq, sub_sq, safe_rows, v, i,
-                                    goal, f, width, metric)
-            f = torch.minimum(goal, f + width)
-        vals = vals.index_copy(0, idx, v)
-        ids = ids.index_copy(0, idx, i)
-        frontier = frontier.index_copy(0, idx, f)
-        covered = covered.index_copy(0, idx, target[idx])
-        unfinished = covered < target
-        n_left = int(unfinished.sum())
+        ivf_stats.rounds += 1
+        with span(ROUND):
+            key = ((~unfinished).to(torch.int32) * (2 * nlist)
+                   - (target - covered))
+            idx = torch.argsort(key, stable=True)[:tail_cap]
+            subq, sub_sq = q[idx], q_sq[idx]
+            with span(RANK):
+                _, cids = coarse_rank(arrays, subq, metric, q_sq=sub_sq)
+                row_slots, offsets = expand_probes(mr, cids, nlist, tail_out)
+                safe_rows = row_slots.clamp_min(0)
+                goal = _goal_rows(offsets, target[idx])
+                v, i, f = vals[idx], ids[idx], frontier[idx]
+            for width in tail_widths:
+                with span(WAVE):
+                    # frontiers only grow: no later width is needed
+                    if not synced(bool, (f < goal).any()):
+                        ivf_stats.waves_skipped += 1
+                        break
+                    ivf_stats.waves += 1
+                    v, i = scan_probe_range(mr.rows, subq, sub_sq, safe_rows,
+                                            v, i, goal, f, width, metric)
+                    f = torch.minimum(goal, f + width)
+            vals = vals.index_copy(0, idx, v)
+            ids = ids.index_copy(0, idx, i)
+            frontier = frontier.index_copy(0, idx, f)
+            covered = covered.index_copy(0, idx, target[idx])
+            unfinished = covered < target
+            n_left = synced(int, unfinished.sum())
     return vals, ids, frontier, covered
 
 
@@ -566,29 +595,34 @@ def _a2_rounds(arrays, mr, traces, q, require_acc, multipler, std_m, state,
     sub-batch (the forced decision at nlist/8), so the rounds are at most
     ceil(undecided / a2_cap)."""
     B = q.shape[0]
-    n_und = int((state[2] == 0).sum())
+    n_und = synced(int, (state[2] == 0).sum())
     if n_und > B // 2:
         z = torch.zeros(B, dtype=torch.float32, device=q.device)
         state, _ = _mr_impl(arrays, mr, traces, q, require_acc, multipler,
                             std_m, z, query_k, max_topk, metric, plan.a2,
                             False, decide_only=True, init=state,
                             decide_margin=decide_margin)
-        n_und = int((state[2] == 0).sum())
+        n_und = synced(int, (state[2] == 0).sum())
     most = -(-n_und // max(plan.a2_cap, 1))
     rounds = 0
     while n_und:
         rounds += 1
         _round_guard(rounds, most, "A2 rounds")
-        idx = torch.argsort((state[2] != 0).to(torch.int32),
-                            stable=True)[:plan.a2_cap]   # undecided first
-        sub = tuple(x[idx] for x in state)
-        zs = torch.zeros(idx.shape[0], dtype=torch.float32, device=q.device)
-        sub_out, _ = _mr_impl(arrays, mr, traces, q[idx], require_acc[idx],
-                              multipler, std_m, zs, query_k, max_topk,
-                              metric, plan.a2, False, decide_only=True,
-                              init=sub, decide_margin=decide_margin)
-        state = tuple(x.index_copy(0, idx, y) for x, y in zip(state, sub_out))
-        n_und = int((state[2] == 0).sum())
+        ivf_stats.rounds += 1
+        with span(ROUND):
+            idx = torch.argsort((state[2] != 0).to(torch.int32),
+                                stable=True)[:plan.a2_cap]  # undecided first
+            sub = tuple(x[idx] for x in state)
+            zs = torch.zeros(idx.shape[0], dtype=torch.float32,
+                             device=q.device)
+            sub_out, _ = _mr_impl(arrays, mr, traces, q[idx],
+                                  require_acc[idx], multipler, std_m, zs,
+                                  query_k, max_topk, metric, plan.a2, False,
+                                  decide_only=True, init=sub,
+                                  decide_margin=decide_margin)
+            state = tuple(x.index_copy(0, idx, y)
+                          for x, y in zip(state, sub_out))
+            n_und = synced(int, (state[2] == 0).sum())
     return state
 
 

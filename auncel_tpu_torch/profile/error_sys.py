@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from auncel_tpu_torch.index.aux import ivf_stats
 from auncel_tpu_torch.index.ivf import IVFFlatIndex
 from auncel_tpu_torch.profile import hyper
 from auncel_tpu_torch.profile.trainer import train_profile
@@ -43,6 +44,8 @@ from auncel_tpu_torch.profile.bounded import (
 from auncel_tpu_torch.profile.bounded_mr import (
     bounded_oneshot_mr, bounded_search_mr, budgeted_search_mr,
     nprobe_search_mr, plan_latency, plan_oneshot)
+from auncel_tpu_torch.tracing import (
+    INPUTS, RECORD, ROUND, SEARCH, span, synced)
 
 # multi-row layouts below this many rows keep the gather tail (the shared
 # corpus pass gains nothing on small corpora); dense_cut == 0.0 bypasses it
@@ -249,50 +252,68 @@ class ErrorSys:
             arrays, self.traces, q, acc, multipler, std_m, self.query_topk,
             self.max_topk, metric, decide_margin=margin)
         target = torch.maximum(my_np, decided).clamp_max(nlist)
-        target_np = target.cpu().numpy()
+        target_np = synced(torch.Tensor.cpu, target).numpy()
         need = np.where(target_np > cap_stage)[0]
         for w, rows in self._width_buckets(need, target_np, cap_stage,
                                            nlist):
-            sel = torch.as_tensor(rows, device=q.device)
-            vals[sel], ids[sel] = finish_scan(
-                arrays, q[sel], q_sq[sel], vals[sel], ids[sel], my_np[sel],
-                cap_stage, w - cap_stage, metric)
+            ivf_stats.rounds += 1
+            with span(ROUND):
+                sel = synced(torch.as_tensor, rows, device=q.device)
+                vals[sel], ids[sel] = finish_scan(
+                    arrays, q[sel], q_sq[sel], vals[sel], ids[sel],
+                    my_np[sel], cap_stage, w - cap_stage, metric)
         return vals, ids, my_np, target
 
     def _window(self, start: int, size: int, want_true: bool):
         """Device tensors of one window: queries, bounds, the GT k-th
-        distances (profile mode; zeros otherwise), multipler and std_m."""
+        distances (profile mode; zeros otherwise), multipler and std_m:
+        five blocking copies from pageable host memory."""
         dev = self.index.device
         f32 = torch.float32
-        q = torch.as_tensor(self.queries[start:start + size], device=dev)
-        acc = torch.as_tensor(self.require_acc[start:start + size],
-                              device=dev)
-        gt_kth = np.zeros(size, np.float32)
-        if want_true:
-            g = self.gt_D[start:start + size, self.query_topk - 1]
-            gt_kth[:g.shape[0]] = g
-        return (q, acc, torch.as_tensor(gt_kth, device=dev),
-                torch.tensor(self.multipler, dtype=f32, device=dev),
-                torch.tensor(self.std_m, dtype=f32, device=dev))
+        with span(INPUTS):
+            q = synced(torch.as_tensor, self.queries[start:start + size],
+                       device=dev)
+            acc = synced(torch.as_tensor,
+                         self.require_acc[start:start + size], device=dev)
+            gt_kth = np.zeros(size, np.float32)
+            if want_true:
+                g = self.gt_D[start:start + size, self.query_topk - 1]
+                gt_kth[:g.shape[0]] = g
+            return (q, acc, synced(torch.as_tensor, gt_kth, device=dev),
+                    synced(torch.tensor, self.multipler, dtype=f32,
+                           device=dev),
+                    synced(torch.tensor, self.std_m, dtype=f32, device=dev))
 
     def _record(self, start: int, size: int, out, want_true: bool):
         """Copy one window's results to the host, record my_nprobe,
-        n_scanned (and t_recalls in profile mode) at absolute positions and
-        return numpy (D [size, query_topk], I)."""
+        n_scanned (and t_recalls in profile mode) at absolute positions,
+        add the window to ``ivf_stats`` and return numpy (D [size,
+        query_topk], I)."""
         vals, ids, my_np, n_scanned, t_rec = out
         k = self.query_topk
-        if want_true:
-            self.t_recalls[start:start + size] = t_rec.cpu().numpy()
-        self.my_nprobe[start:start + size] = my_np.cpu().numpy()
-        self.n_scanned[start:start + size] = n_scanned.cpu().numpy()
-        return (vals[:, :k].cpu().numpy(),
-                ids[:, :k].cpu().numpy().astype(np.int64))
+        cpu = torch.Tensor.cpu
+        with span(RECORD):
+            if want_true:
+                self.t_recalls[start:start + size] = synced(cpu,
+                                                            t_rec).numpy()
+            self.my_nprobe[start:start + size] = synced(cpu, my_np).numpy()
+            scanned = synced(cpu, n_scanned).numpy()
+            self.n_scanned[start:start + size] = scanned
+            ivf_stats.nq += size
+            ivf_stats.nlist_scanned += int(scanned.sum())
+            return (synced(cpu, vals[:, :k]).numpy(),
+                    synced(cpu, ids[:, :k]).numpy().astype(np.int64))
 
     def search(self, start: int, search_size: int = -1):
         """Bounded search over queries[start : start + size]. Returns numpy
         (D [size, query_topk], I [size, query_topk]) and records my_nprobe,
         n_scanned and, in profile mode, t_recalls at absolute positions
-        (see the module docstring for the routes)."""
+        (see the module docstring for the routes). Adds to ``ivf_stats``
+        and, under a profiler, records the spans of ``tracing.py``."""
+        with span(SEARCH):
+            return self._search(start, search_size)
+
+    def _search(self, start: int, search_size: int):
         assert self.is_trained, "sys_train before search"
         size = self.num if search_size == -1 else search_size
         want_true = self.profile and self.gt_D is not None
