@@ -31,10 +31,11 @@ from auncel_tpu_torch.types import Metric
 from auncel_tpu_torch.index.aux import ivf_stats
 from auncel_tpu_torch.index.scan import IVFArrays, coarse_rank, \
     scan_probe_range
+from auncel_tpu_torch.kernels.decide import MRDecide, decide_step
 from auncel_tpu_torch.ops.distance import sqnorms
 from auncel_tpu_torch.ops.topk import init_topk
-from auncel_tpu_torch.profile.geometry import boundary_distances, \
-    n_boundaries, sum_angle
+from auncel_tpu_torch.profile.geometry import ANGLE_WINDOW, \
+    boundary_distances, n_boundaries, sum_angle
 from auncel_tpu_torch.profile.trace import TraceSet, trace_lookup
 from auncel_tpu_torch.profile.trainer import train_stages
 from auncel_tpu_torch.tracing import DECIDE, RANK, WAVE, span, synced
@@ -134,7 +135,8 @@ def _decide_at_stage(traces, dtb, vals, stage, nlist, query_k, max_topk,
     """The per-boundary termination predicate (IndexIVF.cpp:551-568) on the
     sorted top-k snapshot after exactly ``stage`` lists. ``exact_mask``
     marks queries whose bound demands the exact top-k: they also evaluate
-    at width query_k + 1 and take the minimum (one spare neighbour)."""
+    at width query_k + 1 and take the minimum (one spare neighbour). The
+    engines call it through ``decision_step``."""
     ind = stage_to_trace(stage, nlist)
     tval = vals
     if metric is Metric.IP:
@@ -144,6 +146,67 @@ def _decide_at_stage(traces, dtb, vals, stage, nlist, query_k, max_topk,
         r2 = _recall_estimate(traces, dtb, tval, ind, query_k + 1, std_m)
         recall = torch.where(exact_mask, torch.minimum(recall, r2), recall)
     return recall
+
+
+def _mr_update(recall, vals, max_topk, mr: MRDecide):
+    """The multi-row engine's state update after a deciding wave's
+    estimate ``recall`` at boundary ``mr.stage``: complete, stagnation and
+    its recall override, pre_val, last_stage, and the decision. Returns
+    (recall, my_np, decided_at, stoped, pre_val, last_stage)."""
+    stage, my_np, last_stage = mr.stage, mr.my_np, mr.last_stage
+    complete = mr.frontier >= mr.stage_rows
+    # stagnation advances by the list gap since the last COMPLETE boundary
+    # (the worst top-k value is monotone)
+    max_val = vals[:, max_topk - 1]
+    seen = last_stage > 0
+    cmp_ok = complete & seen
+    stoped = torch.where(cmp_ok & (max_val == mr.pre_val),
+                         mr.stoped + (stage - last_stage),
+                         torch.where(cmp_ok, 0, mr.stoped))
+    recall = torch.where((stoped >= mr.stops) & seen, 1.0, recall)
+    pre_val = torch.where(complete, max_val, mr.pre_val)
+    last_stage = torch.where(complete, stage, last_stage)
+
+    sat = complete & (recall >= mr.require_acc) & (my_np == 0)
+    if mr.forced:
+        sat = sat | (complete & (my_np == 0))
+    new_np = torch.floor(stage * mr.multipler).to(torch.int32)
+    if mr.forced:
+        # the forced decision must take effect (else the A2 loop could
+        # never finish); its conservative floor is a full scan, as in the
+        # reference's control flow
+        new_np = torch.where(new_np > 0, new_np, mr.nlist)
+    eff = sat & (new_np > 0)
+    my_np = torch.where(eff, new_np, my_np)
+    decided_at = torch.where(eff, stage, mr.decided_at)
+    return recall, my_np, decided_at, stoped, pre_val, last_stage
+
+
+def decision_step_ref(traces, dtb, vals, stage, nlist, query_k, max_topk,
+                      std_m, metric, exact_mask=None, mr=None):
+    """The plain version of ``decision_step``: ``_decide_at_stage`` and,
+    given ``mr``, ``_mr_update``."""
+    recall = _decide_at_stage(traces, dtb, vals, stage, nlist, query_k,
+                              max_topk, std_m, metric, exact_mask)
+    return recall if mr is None else _mr_update(recall, vals, max_topk, mr)
+
+
+def decision_step(traces, dtb, vals, stage, nlist, query_k, max_topk,
+                  std_m, metric, exact_mask=None, mr: MRDecide | None = None):
+    """The decision step of a deciding wave after exactly ``stage`` lists:
+    each query's recall estimate and, given ``mr`` (the multi-row engine's
+    state), its state update. Returns what ``decision_step_ref`` returns:
+    CPU tensors run it; CUDA tensors run one launch of
+    ``kernels/decide.py``'s kernel, bit for bit the same, and never fall
+    back."""
+    if vals.device.type == "cpu":
+        return decision_step_ref(traces, dtb, vals, stage, nlist, query_k,
+                                 max_topk, std_m, metric, exact_mask, mr)
+    return decide_step(traces, dtb, vals, std_m,
+                       ind=stage_to_trace(stage, nlist), window=ANGLE_WINDOW,
+                       query_k=query_k, max_topk=max_topk,
+                       slack=FULL_OK_SLACK, ip=metric is Metric.IP,
+                       exact_mask=exact_mask, mr=mr)
 
 
 def bounded_search(
@@ -297,9 +360,9 @@ def _bounded_impl(arrays, traces, q, require_acc, multipler, std_m, query_k,
             if stage > nlist // 8 or not any_undecided:
                 continue
             with span(DECIDE):
-                recall = _decide_at_stage(traces, dtb, vals, stage, nlist,
-                                          query_k, max_topk, std_m, metric,
-                                          exact_mask)
+                recall = decision_step(traces, dtb, vals, stage, nlist,
+                                       query_k, max_topk, std_m, metric,
+                                       exact_mask)
                 max_val = vals[:, max_topk - 1]  # worst of the running top-k
                 if wave_i > 0:
                     stoped = torch.where(max_val == pre_val, stoped + width,

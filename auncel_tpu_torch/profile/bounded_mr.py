@@ -50,13 +50,14 @@ from auncel_tpu_torch.index.scan import (
     IVFArrays, coarse_rank, dense_stage_snapshots, inverse_rank,
     masked_full_scan, scan_probe_range)
 from auncel_tpu_torch.index.multirow import MultiRowArrays, expand_probes
+from auncel_tpu_torch.kernels.decide import MRDecide
 from auncel_tpu_torch.ops.distance import sqnorms
 from auncel_tpu_torch.ops.topk import init_topk
 from auncel_tpu_torch.profile.geometry import boundary_distances, \
     n_boundaries
 from auncel_tpu_torch.profile.trace import TraceSet
 from auncel_tpu_torch.profile.bounded import (
-    STAGNATION_FACTOR, wave_boundaries, _decide_at_stage, exact_topk_mask,
+    STAGNATION_FACTOR, wave_boundaries, decision_step, exact_topk_mask,
     true_recall)
 from auncel_tpu_torch.tracing import DECIDE, RANK, ROUND, WAVE, span, synced
 
@@ -244,7 +245,8 @@ def _mr_impl(arrays, mr, traces, q, require_acc, multipler, std_m, gt_kth,
              init=None, decide_margin=False):
     """The wave engine. The decision arithmetic stays float32, as in the
     JAX package: ``floor(stage * multipler)`` in float64 would flip
-    budgets."""
+    budgets. A deciding wave's estimate and state update are one
+    ``decision_step`` (one kernel launch on the card)."""
     B = q.shape[0]
     dev = q.device
     nlist = arrays.nlist
@@ -291,35 +293,14 @@ def _mr_impl(arrays, mr, traces, q, require_acc, multipler, std_m, gt_kth,
             if not decide:
                 continue
             with span(DECIDE):
-                is_forced = stage >= cap_stage
-                complete = frontier >= offsets[:, min(stage, plan.S) - 1]
-                recall = _decide_at_stage(traces, dtb, vals, stage, nlist,
-                                          query_k, max_topk, std_m, metric,
-                                          exact_mask)
-                # stagnation advances by the list gap since the last
-                # COMPLETE boundary (the worst top-k value is monotone)
-                max_val = vals[:, max_topk - 1]
-                seen = last_stage > 0
-                cmp_ok = complete & seen
-                stoped = torch.where(cmp_ok & (max_val == pre_val),
-                                     stoped + (stage - last_stage),
-                                     torch.where(cmp_ok, 0, stoped))
-                recall = torch.where((stoped >= stops) & seen, 1.0, recall)
-                pre_val = torch.where(complete, max_val, pre_val)
-                last_stage = torch.where(complete, stage, last_stage)
-
-                sat = complete & (recall >= require_acc) & (my_np == 0)
-                if is_forced:
-                    sat = sat | (complete & (my_np == 0))
-                new_np = torch.floor(stage * multipler).to(torch.int32)
-                if is_forced:
-                    # the forced decision must take effect (else the A2
-                    # loop could never finish); its conservative floor is a
-                    # full scan, as in the reference's control flow
-                    new_np = torch.where(new_np > 0, new_np, nlist)
-                eff = sat & (new_np > 0)
-                my_np = torch.where(eff, new_np, my_np)
-                decided_at = torch.where(eff, stage, decided_at)
+                (_, my_np, decided_at, stoped, pre_val,
+                 last_stage) = decision_step(
+                    traces, dtb, vals, stage, nlist, query_k, max_topk,
+                    std_m, metric, exact_mask, MRDecide(
+                        frontier, offsets[:, min(stage, plan.S) - 1],
+                        require_acc, stops, multipler, my_np, decided_at,
+                        stoped, pre_val, last_stage, stage,
+                        stage >= cap_stage, nlist))
 
     if decide_only:
         return (vals, ids, my_np, decided_at, stoped, pre_val, last_stage,
@@ -448,9 +429,9 @@ def _dense_decide(arrays, mr, traces, q, q_sq, require_acc, multipler,
     for si, stage in enumerate(stages):
         with span(DECIDE):
             vals = snaps[:, si]
-            recall = _decide_at_stage(traces, dtb, vals, stage, nlist,
-                                      query_k, max_topk, std_m, metric,
-                                      exact_mask)
+            recall = decision_step(traces, dtb, vals, stage, nlist,
+                                   query_k, max_topk, std_m, metric,
+                                   exact_mask)
             max_val = vals[:, max_topk - 1]
             if last_stage > 0:   # every boundary is complete here
                 stoped = torch.where(max_val == pre_val,

@@ -21,7 +21,11 @@ widths of the main path's merges on uniform, tied and all-dead chunks
 ([topk synth]; a 10M window with a full running result, the steady state
 of a window's later rounds, and the 10M batch-1 width too) and at k 129,
 640, 1024 and 6400 ([topk k]), bitwise its plain version and timed against
-it and torch.topk; the bounded-search
+it and torch.topk; the decision step's kernel (csrc/decide.cu, one launch a
+deciding wave) at the benchmark's shape (nlist 1024, B 1, k 10 of a top-100
+at stages 16 and 128, with and without the multi-row state update) and at
+a window's (B 1000, k 100), bitwise its plain version or the run fails,
+with the device and host time of both ([decide]); the bounded-search
 main path on the multi-row layout (K1 in search, K2 in profile
 training): calibration with its
 measured dense crossover, the held-out window through the one-shot engine
@@ -591,6 +595,123 @@ def topk_check(device, card: str) -> dict:
             out[(f"k {k}", kind)] = r
             del call
         torch.cuda.empty_cache()
+    return out
+
+
+# [decide]: (B, k, stage, with the state update) at nlist 1024 and a
+# top-100: the benchmark's batch-1 decisions and a window's
+DECIDE_SHAPES = ((1, 10, 16, False), (1, 10, 16, True), (1, 10, 128, False),
+                 (1, 10, 128, True), (1000, 100, 16, True),
+                 (1000, 100, 128, True))
+DECIDE_NLIST, DECIDE_TOPK = 1024, 100
+
+
+def synthetic_decide(device, B: int, k: int, stage: int, update: bool,
+                     seed: int) -> tuple:
+    """decision_step's arguments at nlist DECIDE_NLIST: random ascending
+    traces, a sorted top-DECIDE_TOPK a row (a quarter of the rows
+    unfilled from some slot on), boundary distances, the exact mask on
+    half the rows and, with ``update``, a later visit's carried state."""
+    from auncel_tpu_torch import Metric
+    from auncel_tpu_torch.kernels.decide import MRDecide
+    from auncel_tpu_torch.profile.geometry import n_boundaries
+    from auncel_tpu_torch.profile.trace import make_trace_set
+    from auncel_tpu_torch.types import worst_value
+    rng = np.random.RandomState(seed)
+    per = []
+    for _ in range(8):
+        n = int(rng.randint(50, 300))
+        per.append((np.sort(rng.uniform(0, 8, n)).astype(np.float32),
+                    rng.uniform(0.2, 3, n).astype(np.float32),
+                    rng.uniform(0, 0.3, n).astype(np.float32)))
+    traces = make_trace_set(per, device)
+    vals = np.sort(rng.uniform(0.05, 3, (B, DECIDE_TOPK)), 1).astype(
+        np.float32)
+    for b in range(0, B, 4):
+        vals[b, rng.randint(0, DECIDE_TOPK):] = worst_value(Metric.L2)
+    dtb = rng.uniform(-0.5, 2.5, (B, n_boundaries(DECIDE_NLIST)))
+
+    def dev(a, dtype=np.float32):
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
+    exact = torch.as_tensor(rng.rand(B) < 0.5, device=device)
+    mr = None
+    if update:
+        i32 = np.int32
+        rows = rng.randint(0, 5000, B)
+        acc = rng.choice([0.9, 1.0], B)
+        my_np = np.where(rng.rand(B) < 0.3, rng.randint(1, 300, B), 0)
+        mr = MRDecide(dev(rows + rng.randint(-30, 30, B), i32), dev(rows, i32),
+                      dev(acc), dev(np.floor(acc * 12), i32),
+                      torch.tensor(2.7, device=device), dev(my_np, i32),
+                      dev(np.where(my_np > 0, 8, 0), i32),
+                      dev(rng.randint(0, 20, B), i32),
+                      dev(np.where(rng.rand(B) < 0.5, vals[:, -1], 1.0)),
+                      dev(rng.choice([0, 8], B), i32), stage,
+                      stage >= DECIDE_NLIST // 8, DECIDE_NLIST)
+    return (traces, dev(dtb), dev(vals), stage, DECIDE_NLIST, k,
+            DECIDE_TOPK, torch.tensor(1.5, device=device), Metric.L2,
+            exact, mr)
+
+
+def decide_check(device, card: str) -> dict:
+    """The decision step's kernel at DECIDE_SHAPES: decision_step (one
+    launch) bitwise decision_step_ref (its plain torch ops on the card) or
+    the run fails, then the device time of each (profiler) and the host's
+    time a call with the card never waited for (the loop's wall clock over
+    its calls, after one sync): the [decide] lines. Returns the numbers by
+    shape."""
+    from auncel_tpu_torch.kernels.decide import decide_step
+    from auncel_tpu_torch.profile.bounded import (
+        decision_step, decision_step_ref)
+    out = {}
+    for shape in DECIDE_SHAPES:
+        B, k, stage, update = shape
+        args = synthetic_decide(device, *shape, seed=B + k + stage)
+        with uncounted():
+            before = decide_step.launches
+            got = decision_step(*args)
+            check(decide_step.launches == before + 1,
+                  f"[decide] {shape}: the kernel did not launch")
+        want = decision_step_ref(*args)
+        if not update:
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            gb, wb = g.cpu().numpy(), w.cpu().numpy()
+            check(g.dtype == w.dtype and np.array_equal(
+                gb.view(np.int32), wb.view(np.int32)),
+                f"[decide] {shape}: the kernel differs from its plain "
+                f"version")
+
+        def host_ms(fn, reps=200):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            ms = (time.perf_counter() - t0) / reps * 1e3
+            torch.cuda.synchronize()
+            return ms
+
+        def kernel():
+            return decision_step(*args)
+
+        def plain():
+            return decision_step_ref(*args)
+        with uncounted():
+            t_k, t_ref = time_pair(kernel, plain, 50)
+            dev_k, dev_ref = device_ms(kernel, 50), device_ms(plain, 50)
+            host_k, host_ref = host_ms(kernel), host_ms(plain)
+        r = {"max_abs_err": 0.0, "ms": t_k, "plain_ms": t_ref,
+             "bound_ms": None, "bound_by": "latency", "dev_ms": dev_k,
+             "plain_dev_ms": dev_ref, "host_ms": host_k,
+             "plain_host_ms": host_ref}
+        out[shape] = r
+        log(f"[decide] B {B}, k {k} of {DECIDE_TOPK}, stage {stage}, nlist "
+            f"{DECIDE_NLIST}, state update {update}: bitwise equal; kernel "
+            f"device {dev_k * 1e3:.2f} us, host {host_k * 1e3:.2f} us a "
+            f"call; plain device {dev_ref * 1e3:.2f} us, host "
+            f"{host_ref * 1e3:.2f} us ({host_ref / host_k:.1f}x the "
+            f"kernel's host time) [{card}]")
     return out
 
 
@@ -1289,12 +1410,13 @@ def count_scan_merges() -> None:
 
 
 def kernel_wrappers() -> dict:
+    from auncel_tpu_torch.kernels.decide import decide_step
     from auncel_tpu_torch.kernels.rowscan import rowscan_dots, rowscan_scores
     from auncel_tpu_torch.kernels.scan_scores import scan_scores
     from auncel_tpu_torch.kernels.topk_merge import topk_merge
     return {"rowscan_scores": rowscan_scores, "rowscan_dots": rowscan_dots,
             "scan_scores": scan_scores, "topk_merge": topk_merge,
-            "scan_merges": SCAN_MERGES}
+            "decide_step": decide_step, "scan_merges": SCAN_MERGES}
 
 
 def launch_counts() -> dict:
@@ -1740,6 +1862,8 @@ def multirow_path(c: dict, card: str, profile_dir: str | None) -> dict:
           and lat.get("rowscan_scores", 0) > 0, "search never launched K1")
     check(launches["rowscan_dots"] == 0,
           "the multi-row path launched rowscan_dots")
+    check(lat.get("decide_step", 0) > 0,
+          "batch-1 search never launched the decision kernel")
     for part in (train, window["launches"], lat):
         check_merges("multirow", part)
     if profile_dir:
@@ -4947,7 +5071,7 @@ def main() -> int:
     # the 10M phases' corpora, made on the host while nvcc builds and the
     # earlier phases run; --kernels stops before they are read
     corpora = None if "--kernels" in sys.argv else start_10m_corpora()
-    sources = ("rowscan", "scan_scores", "topk_merge")
+    sources = ("rowscan", "scan_scores", "topk_merge", "decide")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.load, sources))  # one nvcc each, all at once
     log(f"[build] {', '.join(f'{n}.cu' for n in sources)} built in "
@@ -4971,6 +5095,7 @@ def main() -> int:
     pq_lines = pq_check(device, card)
     sq8_10m_check(device, card)
     topk_lines = topk_check(device, card)
+    decide = decide_check(device, card)
     corpus = build_corpus(card)
     if "--kernels" in sys.argv:
         kernels_on_index(corpus, device, card)
@@ -5143,6 +5268,15 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": merge_src,
                         "replaces": merge_tpu, "launches": n,
                         "library_ms": rec["library_ms"], **numbers(rec)})
+    # the decision step: the benchmark's shape (B 1, k 10, stage 16, with
+    # the state update), beside the launches of the 1M and 10M paths
+    kernels.append({"name": "decide_step", "route": "cuda",
+                    "source": "auncel_tpu_torch/csrc/decide.cu",
+                    "replaces": "auncel_tpu/profile/bounded_mr.py:241 (XLA "
+                    "ops, no pallas_call)",
+                    "launches": launches("decide_step")
+                    + sq8["launches"]["decide_step"], "library_ms": None,
+                    **numbers(decide[(1, 10, 16, True)])})
     # K2's other PQ instances: filtered, launched by [pq 10M fixed] at each
     # Hamming threshold, with the numbers of its largest call at ht 64;
     # d 256 / M 32 at its synthetic layout, in the comparisons only
